@@ -1,0 +1,53 @@
+from emotts_torch.nn.blocks import (
+    ConvFFN,
+    FFTBlock,
+    FFTStack,
+    MultiHeadSelfAttention,
+    sequence_mask,
+    sinusoidal_positional_encoding,
+)
+from emotts_torch.nn.convert import (
+    fs2_from_flax,
+    hifigan_from_flax,
+    load_vocoder_checkpoint,
+)
+from emotts_torch.nn.fastspeech2 import (
+    EncoderPreNet,
+    FastSpeech2,
+    PostNet,
+    SpeechBrainPostNet,
+    VariancePredictor,
+)
+from emotts_torch.nn.hifigan import (
+    HiFiGANGenerator,
+    ResBlock1,
+    generator_structure_from_params,
+)
+from emotts_torch.nn.length_regulator import (
+    average_over_durations,
+    length_regulate,
+    phone_index_map,
+)
+
+__all__ = [
+    "ConvFFN",
+    "FFTBlock",
+    "FFTStack",
+    "MultiHeadSelfAttention",
+    "sequence_mask",
+    "sinusoidal_positional_encoding",
+    "fs2_from_flax",
+    "hifigan_from_flax",
+    "load_vocoder_checkpoint",
+    "EncoderPreNet",
+    "FastSpeech2",
+    "PostNet",
+    "SpeechBrainPostNet",
+    "VariancePredictor",
+    "HiFiGANGenerator",
+    "ResBlock1",
+    "generator_structure_from_params",
+    "average_over_durations",
+    "length_regulate",
+    "phone_index_map",
+]

@@ -1,0 +1,137 @@
+"""Weights carried across from the reference (JAX/flax) package.
+
+``fs2_from_flax`` and ``hifigan_from_flax`` take the reference's parameter
+trees as nested dicts of numpy arrays and return ``state_dict``s for this
+package's modules.  Nothing here imports the reference: a tree is plain data
+(``jax.device_get`` of the variables, or the ``.npz`` a vocoder was saved to).
+
+Layout rules:
+
+* flax ``Conv`` kernel (k, in, out) → torch ``conv1d`` weight (out, in, k);
+* flax ``Dense`` kernel (in, out) → ``Linear`` weight (out, in);
+* attention ``DenseGeneral``: query/key/value kernel (d_model, H, D) →
+  (H·D, d_model), bias (H, D) → (H·D,); out kernel (H, D, d_model) →
+  (d_model, H·D);
+* LayerNorm/BatchNorm ``scale`` → ``weight``; ``batch_stats`` mean/var →
+  ``running_mean``/``running_var``;
+* HiFi-GAN kernels keep the reference's (k, in, out) layout (transposed-conv
+  kernels time-flipped as stored there); a ResBlock's per-dilation kernels
+  are stacked into (n_d, k, C, C).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_INDEXED = re.compile(r"^(layer|conv|norm|bn|conv_mid)_(\d+)$")
+_PLURAL = {"layer": "layers", "conv": "convs", "norm": "norms", "bn": "bns",
+           "conv_mid": "conv_mid"}
+
+
+def _module_path(parts) -> str:
+    out = []
+    for part in parts:
+        m = _INDEXED.match(part)
+        out.append(f"{_PLURAL[m.group(1)]}.{m.group(2)}" if m else part)
+    return ".".join(out)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+
+
+def _walk(tree: Mapping, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _walk(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val)
+
+
+def fs2_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': ..., 'batch_stats': ...}`` of the reference's FastSpeech2
+    → state_dict of :class:`emotts_torch.nn.fastspeech2.FastSpeech2`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, a in _walk(variables["params"]):
+        *mods, leaf = path
+        name = _module_path(mods)
+        in_attn = len(mods) >= 2 and mods[-2] == "attn"
+        if leaf == "kernel":
+            if in_attn and mods[-1] in ("query", "key", "value"):
+                w = a.reshape(a.shape[0], -1).T  # (d_model, H, D) → (H·D, d_model)
+            elif in_attn and mods[-1] == "out":
+                w = a.reshape(-1, a.shape[-1]).T  # (H, D, d_model) → (d_model, H·D)
+            elif a.ndim == 3:
+                w = a.transpose(2, 1, 0)  # conv (k, in, out) → (out, in, k)
+            elif a.ndim == 2:
+                w = a.T  # dense (in, out) → (out, in)
+            else:
+                raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
+            sd[f"{name}.weight"] = _t(w)
+        elif leaf == "bias":
+            sd[f"{name}.bias"] = _t(a.reshape(-1))
+        elif leaf in ("scale", "embedding"):
+            sd[f"{name}.weight"] = _t(a)
+        else:
+            raise ValueError(f"unexpected parameter {'/'.join(path)}")
+    for path, a in _walk(variables.get("batch_stats", {})):
+        *mods, leaf = path
+        name = _module_path(mods)
+        if leaf not in ("mean", "var"):
+            raise ValueError(f"unexpected statistic {'/'.join(path)}")
+        sd[f"{name}.running_{leaf}"] = _t(a)
+        sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return sd
+
+
+def hifigan_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The reference's HiFi-GAN params tree (``{'params': tree}`` or the bare
+    tree) → state_dict of :class:`emotts_torch.nn.hifigan.HiFiGANGenerator`."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {
+        "conv_pre_kernel": _t(p["conv_pre_kernel"]),
+        "conv_pre_bias": _t(p["conv_pre_bias"]),
+        "conv_post_kernel": _t(p["conv_post_kernel"]),
+        "conv_post_bias": _t(p["conv_post_bias"]),
+    }
+    n_ups = len([k for k in p if re.match(r"^up_\d+_kernel$", k)])
+    n_kernels = len([k for k in p if re.match(r"^resblock_0_\d+$", k)])
+    for i in range(n_ups):
+        sd[f"up_kernels.{i}"] = _t(p[f"up_{i}_kernel"])
+        sd[f"up_biases.{i}"] = _t(p[f"up_{i}_bias"])
+        for j in range(n_kernels):
+            block = p[f"resblock_{i}_{j}"]
+            n_d = len([k for k in block if re.match(r"^convs1_\d+_kernel$", k)])
+            base = f"resblocks.{i * n_kernels + j}"
+            for conv, w_name, b_name in (("convs1", "w1", "b1"),
+                                         ("convs2", "w2", "b2")):
+                sd[f"{base}.{w_name}"] = _t(np.stack(
+                    [np.asarray(block[f"{conv}_{d}_kernel"]) for d in range(n_d)]
+                ))
+                sd[f"{base}.{b_name}"] = _t(np.stack(
+                    [np.asarray(block[f"{conv}_{d}_bias"]) for d in range(n_d)]
+                ))
+    return sd
+
+
+def load_vocoder_checkpoint(path: str) -> dict:
+    """Load a vocoder checkpoint saved by the reference as a flat ``.npz``
+    (keys ``a/b/c``) back into its nested ``{'params': tree}``."""
+    if not path.endswith(".npz"):
+        raise ValueError(
+            f"only .npz vocoder checkpoints are read here, got {path!r}; "
+            "convert torch checkpoints with the reference package first"
+        )
+    params: dict = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            node = params
+            *parents, leaf = key.split("/")
+            for parent in parents:
+                node = node.setdefault(parent, {})
+            node[leaf] = flat[key]
+    return {"params": params}

@@ -1,0 +1,109 @@
+"""Shared helpers of the tests that hold the PyTorch port (emotts_torch)
+against the JAX package: equal small configurations on both sides, and
+weights made from a numpy seed in the JAX package's tree layout (the port
+receives them through emotts_torch.nn.convert)."""
+
+import numpy as np
+import pytest
+import torch
+
+SMALL_VOCODER = dict(
+    in_channels=8,
+    upsample_initial_channel=64,
+    upsample_rates=(4, 2),
+    upsample_kernel_sizes=(8, 4),
+    resblock_kernel_sizes=(3, 7),
+    resblock_dilations=((1, 3), (1, 3)),
+)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """The suite runs several workers on few cores: at these toy sizes one
+    intra-op thread per worker is faster than eight fighting the others.
+    A test file takes this fixture by importing it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def shrink(cfg, prenet="conv", postnet="batchnorm", fused=True):
+    """Apply the tests' small FastSpeech2 size to a Config of either package."""
+    cfg.data.speakers = ["a", "b", "c"]
+    cfg.data.emotions = ["neutral", "amused", "angry"]
+    f = cfg.fastspeech2
+    f.enc_num_layers = f.dec_num_layers = 2
+    f.enc_d_model = f.dec_d_model = 32
+    f.enc_ffn_dim = f.dec_ffn_dim = 64
+    f.postnet_embedding_dim = 32
+    f.postnet_n_convolutions = 3
+    f.max_mel_len = 64
+    f.prenet_style = prenet
+    f.postnet_style = postnet
+    f.fused_attention = fused
+    f.intensity_dim = 3
+    cfg.bucketing.phone_buckets = [16, 32]
+    cfg.train_fs2.compute_dtype = "float32"
+    cfg.inference.neural_g2p = False
+    return cfg
+
+
+def fill_tree(template, seed, scale=0.08):
+    """A tree of the template's shapes with values from a numpy seed.
+
+    Norm scales and BatchNorm variances stay positive and near 1; every
+    other leaf is N(0, scale²)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in sorted(node.items())}
+        shape = tuple(node.shape)
+        noise = rng.standard_normal(shape).astype(np.float32)
+        if path[-1] in ("scale", "var"):
+            return (1.0 + 0.1 * np.abs(noise)).astype(np.float32)
+        return (scale * noise).astype(np.float32)
+
+    return walk(template, ())
+
+
+def fs2_variables(jax_cfg, seed=0, mean_frames=4.0):
+    """Numpy weights for the JAX FastSpeech2 of ``jax_cfg``; the duration
+    predictor's output bias is set so that a phone lasts about
+    ``mean_frames`` frames (zero-initialised it predicts none)."""
+    import jax
+
+    from emotts.train.fs2_trainer import build_fastspeech2, init_fs2_variables
+
+    model = build_fastspeech2(jax_cfg)
+    # shapes only: nothing of the model runs to make the template
+    template = jax.eval_shape(lambda: init_fs2_variables(jax_cfg, model, 0))
+    variables = fill_tree(_plain(template), seed)
+    variables["params"]["duration_predictor"]["out"]["bias"] = np.array(
+        [np.log1p(mean_frames)], np.float32
+    )
+    return model, variables
+
+
+def vocoder_params(structure=SMALL_VOCODER, seed=1, scale=0.15, **flags):
+    """(JAX generator, numpy params tree) for a small HiFi-GAN."""
+    import jax
+    import jax.numpy as jnp
+
+    from emotts.nn.hifigan import HiFiGANGenerator
+
+    gen = HiFiGANGenerator(**structure, **flags)
+    # shapes only: nothing of the generator runs to make the template
+    template = jax.eval_shape(
+        gen.init, jax.random.PRNGKey(0),
+        jnp.zeros((1, 8, structure["in_channels"])),
+    )
+    return gen, fill_tree(_plain(template), seed, scale)
+
+
+def _plain(tree):
+    """FrozenDict or dict → plain nested dict."""
+    if hasattr(tree, "items"):
+        return {k: _plain(v) for k, v in tree.items()}
+    return tree
