@@ -5,17 +5,24 @@ The JAX package ``emotts`` beside it is the reference.  This package imports
 the reference so that a module's counterpart is found by its path
 (``emotts_torch/nn/blocks.py`` ↔ ``emotts/nn/blocks.py``).
 
-Ported so far — the path that serves synthesis requests:
+Ported so far — the path that serves synthesis requests, and rank-model
+training followed by bucketization:
 
-* ``emotts_torch.utils.config`` — the configuration tree (own copy).
+* ``emotts_torch.utils``  — the configuration tree and experiment
+  directories (own copies).
 * ``emotts_torch.text``   — cleaners, ARPABET vocabulary, G2P, SSML-lite.
 * ``emotts_torch.audio``  — WAV output.
 * ``emotts_torch.ops``    — hand-written CUDA kernels (``csrc/*.cu``) for
-  fused attention, the HiFi-GAN ResBlock and the fused MRF stage, each with
-  its wrapper, its plain PyTorch version and a launch counter.
+  fused attention (forward with dropout, and backward), the HiFi-GAN ResBlock
+  and the fused MRF stage, each with its wrapper, its plain PyTorch version
+  and a launch counter.
 * ``emotts_torch.nn``     — FFT blocks, length regulator, FastSpeech2,
-  HiFi-GAN generator, conversion of the reference's weights.
-* ``emotts_torch.infer``  — ``Synthesizer`` and the HTTP server.
+  HiFi-GAN generator, the rank model, conversion of the reference's weights.
+* ``emotts_torch.losses`` — the rank loss.
+* ``emotts_torch.data``   — the rank-pair dataset and the bucketed loader.
+* ``emotts_torch.train``  — AdamW with stored-dtype moments, train state,
+  checkpoints, metrics, ``RankTrainer``.
+* ``emotts_torch.infer``  — ``Synthesizer``, the HTTP server, ``bucketize``.
 """
 
 __version__ = "0.1.0"

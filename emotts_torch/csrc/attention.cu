@@ -1,9 +1,11 @@
-// Fused self-attention forward for the FFT blocks (inference, dropout rate 0).
+// Fused self-attention forward for the FFT blocks, with dropout on the
+// probabilities for training (rate 0 compiles to the kernel without it).
 //
 // Replaces the Pallas kernel `_fwd_kernel` of emotts/ops/attention.py
 // (reached through `fused_attention`): per (batch, head)
 //   S = Q K^T / sqrt(D) + bias[key]     (bias is additive: 0 valid, -1e9 pad)
 //   P = softmax(S) in fp32, cast to the compute type
+//   P = keep ? P / (1 - rate) : 0       (training only; rounded to the type)
 //   O = P V with fp32 accumulation, cast to the compute type.
 //
 // The TPU kernel keeps the whole (T, T) score block in on-chip memory.  At
@@ -26,12 +28,29 @@
 // un-rounded).  The two differ by at most one bf16 rounding of each
 // probability; in fp32 nothing is rounded and the results agree to ~1e-6.
 //
+// Dropout.  The keep-mask is a pure function of (seed[b], head, query, key):
+// Philox4x32-10 keyed by the reference's per-(example, head) mix of the seed,
+// counter (query, key / 4), word key % 4, kept where the word >= rate * 2^32.
+// The backward kernel (attention_bwd.cu) walks the tiles in another order and
+// regenerates the same bits.  The TPU kernel draws from that chip's own
+// generator, so the bits differ from the reference's; the plain PyTorch
+// version computes the same Philox bits and is compared value for value.
+// A dropped entry still counts in the softmax row sum: dropping the
+// un-normalised exp(s - m) and dividing by the full sum at the end equals
+// dropping the normalised probability.
+//
+// For the backward pass the kernel can also write each query row's running
+// maximum and sum (`stats`, (2, B, H, T) fp32), from which the backward
+// kernels form P tile by tile without a pass of their own.  Two numbers, not
+// their log-sum-exp: a fully padded row has maximum -1e9, and -1e9 + log(T)
+// is not representable in fp32.
+//
 // Bound on this card: 4*B*H*T^2*D operations against 2*4*B*T*H*D*itemsize
 // bytes — operations dominate from T of a few hundred on.  This version
 // multiplies on the fp32 FMA units (operands widened from bf16, which is
 // exact), a long way below the tensor-core rate; moving both products to
 // `wgmma` is the next step and changes no interface.
-#include "common.cuh"
+#include "attention_common.cuh"
 
 #include <math.h>
 
@@ -41,25 +60,19 @@ constexpr int kBQ = 64;  // queries per block
 constexpr int kBK = 64;  // keys per tile
 
 template <typename T>
-__host__ __device__ constexpr int attn_row_pad() {
-  // row stride of the Q and K tiles in elements: an odd number of 32-bit
-  // words, so that lanes reading different rows at one depth hit different
-  // banks
-  return sizeof(T) == 2 ? 2 : 1;
-}
-
-template <typename T>
 size_t attn_smem_bytes(int D) {
   const int ld = D + attn_row_pad<T>();
   return (size_t)(kBQ * ld + kBK * ld + kBK * D) * sizeof(T) +
          (size_t)(kBQ * kBK + kBK) * sizeof(float);
 }
 
-template <typename T, int DJ>
+template <typename T, int DJ, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ out, int Tlen, int H, float scale) {
+                     const int* __restrict__ seeds, T* __restrict__ out,
+                     float* __restrict__ stats, int Tlen, int H, float scale,
+                     uint32_t thresh, float inv_keep) {
   constexpr int D = DJ * 32;
   constexpr int LD = D + attn_row_pad<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -178,6 +191,24 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       srow[lane] = to_float(from_float<T>(p0));
       srow[lane + 32] = to_float(from_float<T>(p1));
     }
+    if constexpr (DROP) {
+      // this warp's 8 rows x 64 keys are 128 groups of 4 keys, 4 per lane
+      __syncwarp();
+      const uint32_t key = dropout_key(seeds[b], h);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int g = lane + 32 * i;
+        const int r = g >> 4, c4 = g & 15;
+        const uint4 bits = dropout_bits(key, (uint32_t)(q0 + 8 * warp + r),
+                                        (uint32_t)((k0 >> 2) + c4));
+        float* p4 = sS + (8 * warp + r) * kBK + 4 * c4;
+        // kept values are scaled after the cast to the compute type
+        p4[0] = bits.x >= thresh ? to_float(from_float<T>(p4[0] * inv_keep)) : 0.f;
+        p4[1] = bits.y >= thresh ? to_float(from_float<T>(p4[1] * inv_keep)) : 0.f;
+        p4[2] = bits.z >= thresh ? to_float(from_float<T>(p4[2] * inv_keep)) : 0.f;
+        p4[3] = bits.w >= thresh ? to_float(from_float<T>(p4[3] * inv_keep)) : 0.f;
+      }
+    }
     __syncwarp();
 
     // ---- phase 3: O += P V --------------------------------------------------
@@ -204,40 +235,55 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
         orow[lane + 32 * j] = from_float<T>(acc[r][j] * inv);
+      if (stats != nullptr && lane == 0) {
+        const long long row = ((long long)b * H + h) * Tlen + t;
+        stats[row] = m_run[r];
+        stats[(long long)gridDim.z * H * Tlen + row] = l_run[r];
+      }
     }
   }
 }
 
-template <typename T, int DJ>
-int launch_attention(const void* q, const void* k, const void* v,
-                     const float* bias, void* out, int B, int Tlen, int H,
-                     cudaStream_t stream) {
+struct FwdArgs {
+  const void *q, *k, *v;
+  const float* bias;
+  const int* seeds;
+  void* out;
+  float* stats;
+  int B, T, H;
+  uint32_t thresh;
+  float inv_keep;
+  cudaStream_t stream;
+};
+
+template <typename T, int DJ, bool DROP>
+int launch_attention(const FwdArgs& a) {
   constexpr int D = DJ * 32;
+  const int B = a.B, Tlen = a.T, H = a.H;
   const size_t smem = attn_smem_bytes<T>(D);
   if (smem > (size_t)kMaxSmemBytes) return kErrSharedMemory;
-  auto kern = attention_fwd_kernel<T, DJ>;
+  auto kern = attention_fwd_kernel<T, DJ, DROP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tlen + kBQ - 1) / kBQ, H, B);
   const float scale = 1.0f / sqrtf((float)D);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), Tlen, H, scale);
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.bias, a.seeds, static_cast<T*>(a.out),
+      a.stats, Tlen, H, scale, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_attention(const void* q, const void* k, const void* v,
-                       const float* bias, void* out, int B, int Tlen, int H,
-                       int D, cudaStream_t stream) {
+template <typename T, bool DROP>
+int dispatch_attention(const FwdArgs& a, int D) {
   switch (D) {
-    case 32: return launch_attention<T, 1>(q, k, v, bias, out, B, Tlen, H, stream);
-    case 64: return launch_attention<T, 2>(q, k, v, bias, out, B, Tlen, H, stream);
-    case 96: return launch_attention<T, 3>(q, k, v, bias, out, B, Tlen, H, stream);
-    case 128: return launch_attention<T, 4>(q, k, v, bias, out, B, Tlen, H, stream);
-    case 192: return launch_attention<T, 6>(q, k, v, bias, out, B, Tlen, H, stream);
-    case 256: return launch_attention<T, 8>(q, k, v, bias, out, B, Tlen, H, stream);
+    case 32: return launch_attention<T, 1, DROP>(a);
+    case 64: return launch_attention<T, 2, DROP>(a);
+    case 96: return launch_attention<T, 3, DROP>(a);
+    case 128: return launch_attention<T, 4, DROP>(a);
+    case 192: return launch_attention<T, 6, DROP>(a);
+    case 256: return launch_attention<T, 8, DROP>(a);
     default: return kErrUnsupportedShape;
   }
 }
@@ -246,14 +292,24 @@ int dispatch_attention(const void* q, const void* k, const void* v,
 
 // q, k, v, out: contiguous (B, T, H, D) in fp32 (is_bf16 = 0) or bf16 (1);
 // bias: contiguous (B, T) fp32.  D in {32, 64, 96, 128, 192, 256}.
+// drop != 0 applies dropout: seeds (B,) int32, an entry kept where its random
+// word >= thresh and scaled by inv_keep; with drop == 0 seeds may be null.
+// stats: null, or (2, B, H, T) fp32 to receive each row's maximum and sum.
 // Launches on `stream`, does not synchronise; returns 0 or an error code.
 extern "C" int emotts_attention_fwd(const void* q, const void* k, const void* v,
-                                    const float* bias, void* out, int B, int T,
-                                    int H, int D, int is_bf16, void* stream) {
+                                    const float* bias, const int* seeds,
+                                    void* out, float* stats, int B, int T,
+                                    int H, int D, int is_bf16, int drop,
+                                    unsigned int thresh, float inv_keep,
+                                    void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535)
     return emotts::kErrUnsupportedShape;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (drop && seeds == nullptr) return emotts::kErrUnsupportedShape;
+  const emotts::FwdArgs a{q, k, v, bias, seeds, out, stats, B, T, H, thresh,
+                          inv_keep, static_cast<cudaStream_t>(stream)};
   if (is_bf16)
-    return emotts::dispatch_attention<__nv_bfloat16>(q, k, v, bias, out, B, T, H, D, s);
-  return emotts::dispatch_attention<float>(q, k, v, bias, out, B, T, H, D, s);
+    return drop ? emotts::dispatch_attention<__nv_bfloat16, true>(a, D)
+                : emotts::dispatch_attention<__nv_bfloat16, false>(a, D);
+  return drop ? emotts::dispatch_attention<float, true>(a, D)
+              : emotts::dispatch_attention<float, false>(a, D);
 }

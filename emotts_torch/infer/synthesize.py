@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from emotts_torch.audio.wavio import write_wav
+from emotts_torch.data.datasets import pick_bucket
 from emotts_torch.nn.convert import fs2_from_flax, hifigan_from_flax
 from emotts_torch.nn.fastspeech2 import FastSpeech2
 from emotts_torch.nn.hifigan import (HiFiGANGenerator,
@@ -38,14 +39,6 @@ from emotts_torch.utils.config import Config
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-
-
-def pick_bucket(value: int, buckets: Sequence[int]) -> int:
-    """Smallest bucket ≥ value, or -1 if it overflows the largest."""
-    for b in buckets:
-        if value <= b:
-            return b
-    return -1
 
 
 def resolve_name(value, table, what: str) -> int:

@@ -10,6 +10,7 @@ from emotts_torch.nn.convert import (
     fs2_from_flax,
     hifigan_from_flax,
     load_vocoder_checkpoint,
+    rank_from_flax,
 )
 from emotts_torch.nn.fastspeech2 import (
     EncoderPreNet,
@@ -23,6 +24,7 @@ from emotts_torch.nn.hifigan import (
     ResBlock1,
     generator_structure_from_params,
 )
+from emotts_torch.nn.intensity import IntensityExtractor, RankModel
 from emotts_torch.nn.length_regulator import (
     average_over_durations,
     length_regulate,
@@ -39,6 +41,9 @@ __all__ = [
     "fs2_from_flax",
     "hifigan_from_flax",
     "load_vocoder_checkpoint",
+    "rank_from_flax",
+    "IntensityExtractor",
+    "RankModel",
     "EncoderPreNet",
     "FastSpeech2",
     "PostNet",

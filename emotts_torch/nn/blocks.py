@@ -3,13 +3,22 @@
 Counterpart of ``emotts/nn/blocks.py``.  The FFT block is an encoder layer
 whose feed-forward is a pair of 1-D convolutions:
 
-    y = Norm(x + MHA(x))                        (post-norm; pre-norm switchable)
-    z = Norm(y + Conv_k2(act(Conv_k1(y))))
+    y = Norm(x + Dropout(MHA(x)))               (post-norm; pre-norm switchable)
+    z = Norm(y + Dropout(Conv_k2(act(Conv_k1(y)))))
+
+Style differences are parameters: the rank model uses GELU, kernel sizes
+(9, 9) and dropout also inside the FFN after the activation; FastSpeech2 uses
+ReLU, kernel sizes (9, 1) and dropout on the residuals only.
 
 Activations are (B, T, C) as in the reference.  Matmuls and convs run in
 ``dtype`` (bf16 on the card) with fp32 parameters cast at use; LayerNorm and
-softmax compute in fp32 and cast back where the reference does.  Inference
-only so far: there is no dropout on this path.
+softmax compute in fp32 and cast back where the reference does.
+
+Training mode is a call argument, as in the reference: ``deterministic=False``
+switches dropout on, and every random draw comes from the ``generator`` the
+caller passes (the trainer owns and checkpoints it), never from the global
+one.  Rematerialisation (the reference's ``remat``) is not ported: it changes
+memory, not numbers.
 """
 
 from __future__ import annotations
@@ -23,6 +32,33 @@ import torch.nn.functional as F
 from torch import nn
 
 from emotts_torch.ops.attention import fused_attention
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with an explicit generator (on the device of ``x``):
+    an entry is kept with probability 1 - rate and scaled by 1 / (1 - rate)."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs the caller's torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def draw_attention_seeds(batch: int, generator: Optional[torch.Generator],
+                         device) -> torch.Tensor:
+    """(B,) int32 per-example dropout seeds for the fused kernel:
+    ``base + arange(B)`` with int32 wrap-around, ``base`` one int32 drawn from
+    the generator per call, so example i keeps its stream whatever the batch
+    around it.  Stays on the device: no host read."""
+    if generator is None:
+        raise ValueError("dropout needs the caller's torch.Generator")
+    base = torch.randint(-2 ** 31, 2 ** 31, (1,), generator=generator,
+                         device=device, dtype=torch.int64)
+    seeds = base + torch.arange(batch, device=device, dtype=torch.int64)
+    return (((seeds + 2 ** 31) % 2 ** 32) - 2 ** 31).to(torch.int32)
 
 
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -98,23 +134,29 @@ class MultiHeadSelfAttention(nn.Module):
     ``fused=True`` routes scores → softmax → AV through the hand-written
     kernel (``emotts_torch.ops.attention``) with an additive -1e9 key bias;
     the unfused path masks with the most negative fp32 value, as the
-    reference's two paths do.  Parameters are the same either way."""
+    reference's two paths do.  Parameters are the same either way.  With
+    ``deterministic=False`` the probabilities are dropped out at ``dropout``:
+    inside the kernel on the fused path (Philox streams seeded per example
+    from the generator), by :func:`dropout` on the unfused one — two streams,
+    one distribution."""
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype = torch.float32,
-                 fused: bool = False):
+                 fused: bool = False, dropout: float = 0.0):
         super().__init__()
         if d_model % n_heads:
             raise ValueError("d_model must be divisible by n_heads")
         self.d_model, self.n_heads = d_model, n_heads
-        self.dtype, self.fused = dtype, fused
+        self.dtype, self.fused, self.dropout = dtype, fused, dropout
         self.query = CastLinear(d_model, d_model)
         self.key = CastLinear(d_model, d_model)
         self.value = CastLinear(d_model, d_model)
         self.out = CastLinear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor,
-                key_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_valid: Optional[torch.Tensor],
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, _ = x.shape
+        rate = 0.0 if deterministic else self.dropout
         h, d = self.n_heads, self.d_model // self.n_heads
         x = x.to(self.dtype)
         q = self.query(x).view(b, t, h, d)
@@ -125,7 +167,10 @@ class MultiHeadSelfAttention(nn.Module):
                 bias = (1.0 - key_valid.float()) * -1e9
             else:
                 bias = torch.zeros((b, t), dtype=torch.float32, device=x.device)
-            out = fused_attention(q, k, v, bias)
+            seeds = None
+            if rate > 0.0:
+                seeds = draw_attention_seeds(b, generator, x.device)
+            out = fused_attention(q, k, v, bias, seeds, rate)
         else:
             scale = 1.0 / math.sqrt(d)
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
@@ -135,6 +180,7 @@ class MultiHeadSelfAttention(nn.Module):
                     key_valid[:, None, None, :], 0.0, neg
                 )
             weights = torch.softmax(logits, dim=-1).to(self.dtype)
+            weights = dropout(weights, rate, generator)
             out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out(out.reshape(b, t, h * d))
 
@@ -143,15 +189,22 @@ class ConvFFN(nn.Module):
     """Two same-padded 1-D convolutions over time with activation between."""
 
     def __init__(self, d_model: int, ffn_dim: int, kernel_sizes: Tuple[int, int],
-                 activation: Callable = F.relu):
+                 activation: Callable = F.relu, dropout: float = 0.0,
+                 internal_dropout: bool = False):
         super().__init__()
         k1, k2 = kernel_sizes
         self.conv1 = CastConv1d(d_model, ffn_dim, k1)
         self.conv2 = CastConv1d(ffn_dim, d_model, k2)
         self.activation = activation
+        # rank-model style: dropout after the activation
+        self.dropout = dropout if internal_dropout else 0.0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.activation(self.conv1(x)))
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.activation(self.conv1(x))
+        if not deterministic:
+            y = dropout(y, self.dropout, generator)
+        return self.conv2(y)
 
 
 class FFTBlock(nn.Module):
@@ -161,23 +214,31 @@ class FFTBlock(nn.Module):
                  kernel_sizes: Tuple[int, int] = (9, 1),
                  activation: Callable = F.relu, normalize_before: bool = False,
                  ln_eps: float = 1e-6, fused_attention: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 ffn_internal_dropout: bool = False):
         super().__init__()
         self.normalize_before = normalize_before
         self.dtype = dtype
+        self.dropout = dropout
         self.norm1 = LayerNorm32(d_model, eps=ln_eps)
         self.norm2 = LayerNorm32(d_model, eps=ln_eps)
-        self.attn = MultiHeadSelfAttention(d_model, n_heads, dtype, fused_attention)
-        self.ffn = ConvFFN(d_model, ffn_dim, kernel_sizes, activation)
+        self.attn = MultiHeadSelfAttention(d_model, n_heads, dtype,
+                                           fused_attention, dropout)
+        self.ffn = ConvFFN(d_model, ffn_dim, kernel_sizes, activation, dropout,
+                           ffn_internal_dropout)
 
-    def forward(self, x: torch.Tensor,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_valid: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = 0.0 if deterministic else self.dropout
         attn_in = self.norm1(x).to(self.dtype) if self.normalize_before else x
-        x = x + self.attn(attn_in, key_valid)
+        x = x + dropout(self.attn(attn_in, key_valid, deterministic, generator),
+                        rate, generator)
         if not self.normalize_before:
             x = self.norm1(x).to(self.dtype)
         ffn_in = self.norm2(x).to(self.dtype) if self.normalize_before else x
-        x = x + self.ffn(ffn_in.to(self.dtype))
+        x = x + dropout(self.ffn(ffn_in.to(self.dtype), deterministic, generator),
+                        rate, generator)
         if not self.normalize_before:
             x = self.norm2(x).to(self.dtype)
         return x
@@ -191,20 +252,23 @@ class FFTStack(nn.Module):
                  activation: Callable = F.relu, normalize_before: bool = False,
                  final_norm: bool = False, ln_eps: float = 1e-6,
                  fused_attention: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 ffn_internal_dropout: bool = False):
         super().__init__()
         self.dtype = dtype
         self.layers = nn.ModuleList([
             FFTBlock(d_model, n_heads, ffn_dim, kernel_sizes, activation,
-                     normalize_before, ln_eps, fused_attention, dtype)
+                     normalize_before, ln_eps, fused_attention, dtype, dropout,
+                     ffn_internal_dropout)
             for _ in range(num_layers)
         ])
         self.final_norm = LayerNorm32(d_model, eps=ln_eps) if final_norm else None
 
-    def forward(self, x: torch.Tensor,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_valid: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, key_valid)
+            x = layer(x, key_valid, deterministic, generator)
         if self.final_norm is not None:
             x = self.final_norm(x).to(self.dtype)
         return x

@@ -1,7 +1,7 @@
 """Weights carried across from the reference (JAX/flax) package.
 
-``fs2_from_flax`` and ``hifigan_from_flax`` take the reference's parameter
-trees as nested dicts of numpy arrays and return ``state_dict``s for this
+``fs2_from_flax``, ``rank_from_flax`` and ``hifigan_from_flax`` take the
+reference's parameter trees as nested dicts of numpy arrays and return ``state_dict``s for this
 package's modules.  Nothing here imports the reference: a tree is plain data
 (``jax.device_get`` of the variables, or the ``.npz`` a vocoder was saved to).
 
@@ -41,7 +41,7 @@ def _module_path(parts) -> str:
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # a copy: writable
 
 
 def _walk(tree: Mapping, prefix=()):
@@ -52,11 +52,11 @@ def _walk(tree: Mapping, prefix=()):
             yield prefix + (key,), np.asarray(val)
 
 
-def fs2_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{'params': ..., 'batch_stats': ...}`` of the reference's FastSpeech2
-    → state_dict of :class:`emotts_torch.nn.fastspeech2.FastSpeech2`."""
+def _params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``params`` tree of Dense/DenseGeneral/Conv/LayerNorm/Embed
+    leaves → state_dict entries, by the layout rules above."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, a in _walk(variables["params"]):
+    for path, a in _walk(params):
         *mods, leaf = path
         name = _module_path(mods)
         in_attn = len(mods) >= 2 and mods[-2] == "attn"
@@ -78,6 +78,19 @@ def fs2_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             sd[f"{name}.weight"] = _t(a)
         else:
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
+    return sd
+
+
+def rank_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` (or the bare tree) of the reference's RankModel
+    → state_dict of :class:`emotts_torch.nn.intensity.RankModel`."""
+    return _params_to_state_dict(variables.get("params", variables))
+
+
+def fs2_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': ..., 'batch_stats': ...}`` of the reference's FastSpeech2
+    → state_dict of :class:`emotts_torch.nn.fastspeech2.FastSpeech2`."""
+    sd = _params_to_state_dict(variables["params"])
     for path, a in _walk(variables.get("batch_stats", {})):
         *mods, leaf = path
         name = _module_path(mods)

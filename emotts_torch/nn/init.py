@@ -24,7 +24,8 @@ def seeded_init_(module: nn.Module, generator: torch.Generator,
 
     fan_in follows each layout: (out, in[, k]) for Linear/conv weights and
     embeddings (fan_in = features), (k, in, out) and (n_d, k, in, out) for
-    the vocoder's kernels."""
+    the vocoder's kernels.  The trainers start from these weights too
+    (``emotts_torch.train.rank_trainer.init_rank_model``)."""
     vocoder = isinstance(module, HiFiGANGenerator)
     for _, p in module.named_parameters():
         if p.dim() < 2:

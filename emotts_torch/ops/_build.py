@@ -22,7 +22,7 @@ from typing import Dict, Iterable, List
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-KERNEL_SOURCES = ("attention", "resblock", "mrf")
+KERNEL_SOURCES = ("attention", "attention_bwd", "resblock", "mrf")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -1,0 +1,133 @@
+"""Train state (step, model, optimizer, generators) and the optimizer.
+
+Counterpart of ``emotts/train/state.py``.  The whole state checkpoints —
+parameters, optimizer moments, the step counter and the states of the random
+generators — so that training is exactly resumable: a resumed run continues
+the same random streams.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from emotts_torch.utils.config import TrainConfig
+
+
+class AdamW(torch.optim.Optimizer):
+    """AdamW with torch-default hyperparameters (betas 0.9/0.999, eps 1e-8,
+    decoupled weight decay) whose moments are *stored* in ``moment_dtype``
+    while all arithmetic is fp32, in the reference's order:
+
+        m = b1·m + (1−b1)·g ;  v = b2·v + (1−b2)·g²          (fp32)
+        u = (m / c1) / (√(v / c2) + eps)                      c = 1 − bᵗ
+        u = u + wd·p
+        p = p + (−lr)·u
+        m, v stored back in ``moment_dtype``
+
+    One implementation for fp32 and bf16 moments.  ``torch.optim.AdamW`` is
+    not the same arithmetic (it decays the parameter first and folds the bias
+    corrections into the step size), nor would it keep bf16 moments beside
+    fp32 parameters.
+    """
+
+    def __init__(self, params: Iterable, lr: float, weight_decay: float = 1e-2,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
+                 moment_dtype: torch.dtype = torch.float32):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      betas=betas, eps=eps))
+        self.moment_dtype = moment_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("this optimizer takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            group["count"] = count = group.get("count", 0) + 1
+            # fp32 bias-correction scalars
+            c1 = float(np.float32(1.0) - np.power(np.float32(b1), np.float32(count)))
+            c2 = float(np.float32(1.0) - np.power(np.float32(b2), np.float32(count)))
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["mu"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                    state["nu"] = torch.zeros_like(p, dtype=self.moment_dtype)
+            mus = [self.state[p]["mu"] for p in params]
+            nus = [self.state[p]["nu"] for p in params]
+            # one multi-tensor call per operation instead of one call per
+            # operation and parameter: the arithmetic is per element either way
+            g = [p.grad.float() for p in params]
+            m = torch._foreach_mul([x.float() for x in mus], b1)
+            torch._foreach_add_(m, g, alpha=1.0 - b1)
+            v = torch._foreach_mul([x.float() for x in nus], b2)
+            torch._foreach_addcmul_(v, g, g, value=1.0 - b2)
+            u = torch._foreach_div(m, c1)
+            denom = torch._foreach_div(v, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(u, denom)
+            torch._foreach_add_(u, params, alpha=group["weight_decay"])
+            torch._foreach_add_(params, u, alpha=-group["lr"])
+            torch._foreach_copy_(mus, m)  # rounds to the storage dtype
+            torch._foreach_copy_(nus, v)
+
+
+def moment_dtype_of(cfg: TrainConfig) -> torch.dtype:
+    if cfg.moment_dtype in (None, "", "float32"):
+        return torch.float32
+    return getattr(torch, cfg.moment_dtype)
+
+
+def make_optimizer(cfg: TrainConfig, params: Iterable) -> AdamW:
+    """The optimizer of a training configuration over ``params``."""
+    return AdamW(params, lr=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                 moment_dtype=moment_dtype_of(cfg))
+
+
+class TrainState:
+    """What a trainer carries from step to step and writes to a checkpoint:
+    the step counter, the model, its optimizer, and the named generators the
+    step draws from (made on the model's device, seeded from ``seed``)."""
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                 seed: int, device, streams=("mixup", "dropout")):
+        self.step = 0
+        self.model = model
+        self.optimizer = optimizer
+        self.generators: Dict[str, torch.Generator] = {}
+        for i, name in enumerate(streams):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed * 7919 + i)
+            self.generators[name] = gen
+
+    def state_dict(self) -> dict:
+        return {
+            "step": self.step,
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "generators": {k: g.get_state() for k, g in self.generators.items()},
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = int(state["step"])
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        moment_dtype: Optional[torch.dtype] = getattr(
+            self.optimizer, "moment_dtype", None)
+        if moment_dtype is not None:
+            # Optimizer.load_state_dict casts state to the parameters' dtype;
+            # the moments go back to their storage dtype (also where the
+            # checkpoint was written under another moment_dtype)
+            for st in self.optimizer.state.values():
+                for key in ("mu", "nu"):
+                    if key in st:
+                        st[key] = st[key].to(moment_dtype)
+        for name, gen_state in state["generators"].items():
+            self.generators[name].set_state(gen_state.cpu())

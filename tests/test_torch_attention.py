@@ -59,12 +59,22 @@ def test_fully_padded_row_is_uniform_mean_of_values():
 
 
 def test_cpu_wrapper_counts_no_launch_and_dropout_is_refused():
+    """Dropout is refused only where it cannot be drawn: without seeds, or
+    at a rate outside [0, 1).  With seeds it runs, on the CPU through the
+    plain version, and counts no launch."""
     q, k, v, bias = (torch.from_numpy(a) for a in _inputs())
-    before = ta.launch_count
+    before = ta.launch_count, ta.bwd_launch_count
     ta.fused_attention(q, k, v, bias)
-    assert ta.launch_count == before
-    with pytest.raises(NotImplementedError):
-        ta.fused_attention(q, k, v, bias, rate=0.1)
+    seeds = torch.arange(3, dtype=torch.int32)
+    dropped = ta.fused_attention(q, k, v, bias, seeds, rate=0.1)
+    assert dropped.shape == q.shape and torch.isfinite(dropped).all()
+    assert (ta.launch_count, ta.bwd_launch_count) == before
+    with pytest.raises(ValueError):
+        ta.fused_attention(q, k, v, bias, rate=0.1)  # no seeds
+    with pytest.raises(ValueError):
+        ta.fused_attention(q, k, v, bias, seeds.long(), rate=0.1)  # not int32
+    with pytest.raises(ValueError):
+        ta.fused_attention(q, k, v, bias, seeds, rate=1.0)
     with pytest.raises(ValueError):
         ta.fused_attention(q, k, v, bias[:, :-1])
 

@@ -1,5 +1,5 @@
 """The port stands on its own: no module under emotts_torch/, and not
-chip_smoke.py, imports jax, flax or the JAX package."""
+chip_smoke.py, imports jax, flax, optax, orbax or the JAX package."""
 
 import ast
 import subprocess
@@ -30,9 +30,13 @@ def _imported_roots(path: Path):
 
 def test_there_are_sources_to_check():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
-    assert len(SOURCES) > 25
+    assert len(SOURCES) > 40
     for needed in ("chip_smoke.py", "emotts_torch/ops/attention.py",
-                   "emotts_torch/infer/server.py", "emotts_torch/text/g2p.py"):
+                   "emotts_torch/infer/server.py", "emotts_torch/text/g2p.py",
+                   "emotts_torch/train/rank_trainer.py", "emotts_torch/train/state.py",
+                   "emotts_torch/train/checkpoint.py", "emotts_torch/data/loader.py",
+                   "emotts_torch/data/datasets.py", "emotts_torch/losses/rank.py",
+                   "emotts_torch/infer/bucketize.py", "emotts_torch/nn/intensity.py"):
         assert needed in names
 
 
@@ -49,7 +53,7 @@ def test_importing_the_package_loads_no_jax():
         "for m in pkgutil.walk_packages(emotts_torch.__path__, 'emotts_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'emotts'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'emotts'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
         "print('clean', len([m for m in sys.modules if m.startswith('emotts_torch')]))\n"
@@ -63,12 +67,13 @@ def test_importing_the_package_loads_no_jax():
 def test_kernel_sources_are_hand_written_cuda():
     csrc = ROOT / "emotts_torch" / "csrc"
     names = {p.name for p in csrc.iterdir()}
-    assert {"attention.cu", "resblock.cu", "mrf.cu"} <= names
+    assert {"attention.cu", "attention_bwd.cu", "resblock.cu", "mrf.cu"} <= names
     for path in csrc.glob("*.cu*"):
         text = path.read_text()
         for library in ("cublas", "cudnn", "cutlass", "<torch", "ATen"):
             assert library not in text, f"{path.name} mentions {library}"
     for name, entry in (("attention", "emotts_attention_fwd"),
+                        ("attention_bwd", "emotts_attention_bwd"),
                         ("resblock", "emotts_resblock1"),
                         ("mrf", "emotts_mrf_stage")):
         text = (csrc / f"{name}.cu").read_text()

@@ -107,3 +107,42 @@ def _plain(tree):
     if hasattr(tree, "items"):
         return {k: _plain(v) for k, v in tree.items()}
     return tree
+
+
+SMALL_RANK = dict(n_mels=8, n_heads=2, n_emotions=3, n_layers=2, hidden_dim=32,
+                  kernel_size=3, ffn_mult=2, dropout=0.1)
+
+
+def rank_variables(seed=0, fused=False, **overrides):
+    """(JAX RankModel, numpy ``{'params': tree}``) at the tests' small size."""
+    import jax
+    import jax.numpy as jnp
+
+    from emotts.nn.intensity import RankModel
+
+    size = {**SMALL_RANK, **overrides}
+    model = RankModel(**size, fused_attention=fused)
+    c = size["n_mels"] + 2
+    dummy = jnp.zeros((1, 8, c), jnp.float32)
+    # shapes only: nothing of the model runs to make the template
+    template = jax.eval_shape(
+        lambda: model.init(
+            {"params": jax.random.PRNGKey(0), "mixup": jax.random.PRNGKey(1)},
+            dummy, dummy, jnp.zeros((1,), jnp.int32), jnp.full((1,), 8, jnp.int32)))
+    return model, fill_tree(_plain(template), seed, scale=0.15)
+
+
+def rank_batch(seed=0, b=4, t=24, n_mels=8, n_emotions=3):
+    """emo_x, neu_x, emotions, lengths, lambdas (2, B) from a numpy seed; one
+    row is full length, the others ragged."""
+    rng = np.random.default_rng(seed)
+    emo_x, neu_x = (rng.standard_normal((b, t, n_mels + 2)).astype(np.float32)
+                    for _ in range(2))
+    lengths = rng.integers(t // 2, t + 1, size=b).astype(np.int32)
+    lengths[0] = t
+    for i, n in enumerate(lengths):
+        emo_x[i, n:] = 0.0
+        neu_x[i, n:] = 0.0
+    emotions = rng.integers(0, n_emotions, size=b).astype(np.int32)
+    lambdas = rng.uniform(0.0, 1.0, size=(2, b)).astype(np.float32)
+    return emo_x, neu_x, emotions, lengths, lambdas
