@@ -11,9 +11,14 @@ a non-zero exit:
  1. card      name and power limit (nvidia-smi), torch and CUDA versions
  2. build     the kernels from emotts_torch/csrc, one nvcc each, together
  3. kernels   each kernel against its plain PyTorch version on the card, at
-              the shapes its path gives it, with times and roofline bounds:
-              attention forward (rate 0, then with dropout), attention
-              backward, MRF stage, ResBlock
+              the shapes its path gives it, with times, roofline bounds,
+              bound_fraction (bound / time) and vs_library (time / library
+              call's time): attention forward (rate 0, then with dropout) and
+              backward (bf16 on tensor cores at head dim 192, and at 64 and
+              256 for the other instances; fp32 on the FMA units; each with
+              its device time, launches queued behind a sleep kernel, beside
+              the wall time),
+              MRF stage, ResBlock
  4. serve     the full-width model behind the HTTP server: /health, a cold
               and three warm /synthesize, one /batch
  5. sweep     Synthesizer.intensity_sweep, 60 utterances in one batch
@@ -87,6 +92,34 @@ def time_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters=20):
+    """Device time of one call of ``fn``: a sleep kernel holds the stream
+    while the host enqueues ``iters`` calls between two events, so the card
+    then runs them back to back and the host's time between launches (a
+    short kernel's wall time is mostly the wrapper's) does not count.  Events,
+    not the profiler: this phase runs before the end-to-end phases."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000 * iters)  # about 1 ms of the card's clock a call
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def with_ratios(case):
+    """bound_fraction: the bound's share of the kernel's time (1 = at the
+    bound); vs_library: the kernel's time over the library call's."""
+    case["bound_fraction"] = case["bound_ms"] / case["ms"]
+    lib = case.get("library_ms")
+    case["vs_library"] = case["ms"] / lib if lib else None
+    return case
+
+
 def bound(ops, peak_ops, nbytes):
     """(bound_ms, bound_by): the larger of operations over the peak rate and
     bytes (each input read once, each output written once) over HBM rate."""
@@ -131,12 +164,15 @@ def check_attention(gen, dev):
     from emotts_torch.ops import attention as A
 
     cases = []
-    h, d = 2, 192
-    for dtype, b, t, iters in ((torch.bfloat16, 60, 48, 20),
-                               (torch.float32, 60, 48, 20),
-                               (torch.bfloat16, 3, 200, 20),  # ragged last tile
-                               (torch.float32, 8, 1024, 3),
-                               (torch.bfloat16, 60, 1024, 3)):
+    h = 2
+    for dtype, b, t, iters, d in ((torch.bfloat16, 60, 48, 20, 192),
+                                  (torch.float32, 60, 48, 20, 192),
+                                  (torch.bfloat16, 3, 200, 20, 192),  # ragged last tile
+                                  (torch.float32, 8, 1024, 3, 192),
+                                  (torch.bfloat16, 60, 1024, 10, 192),
+                                  # the other head dims' tensor-core instances
+                                  (torch.bfloat16, 8, 250, 10, 64),
+                                  (torch.bfloat16, 8, 250, 10, 256)):
         q, k, v = (torch.randn(b, t, h, d, generator=gen).to(dev, dtype)
                    for _ in range(3))
         lens = torch.randint(1, t + 1, (b,), generator=gen)
@@ -147,6 +183,7 @@ def check_attention(gen, dev):
         want = A.fused_attention_plain(q, k, v, bias)
         err, rel = compare(got, want, **TOL[dtype])
         ms = time_ms(lambda: A.fused_attention(q, k, v, bias), iters)
+        dev_ms = device_ms(lambda: A.fused_attention(q, k, v, bias))
         plain_ms = time_ms(lambda: A.fused_attention_plain(q, k, v, bias), iters)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         mask = bias[:, None, None, :].to(dtype)
@@ -158,8 +195,8 @@ def check_attention(gen, dev):
                              4 * b * t * h * d * q.element_size() + b * t * 4)
         cases.append(dict(
             dtype=str(dtype).split(".")[1], shape=[b, t, h, d], max_abs_err=err,
-            max_rel_err=rel, tolerance=TOL[dtype], ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
+            max_rel_err=rel, tolerance=TOL[dtype], ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
         ))
     return cases
 
@@ -199,6 +236,7 @@ def check_attention_dropout(gen, dev):
         if not torch.equal(got, again):
             raise AssertionError("the forward kernel is not repeatable at rate > 0")
         ms = time_ms(lambda: A.fused_attention(q, k, v, bias, seeds, rate), iters)
+        dev_ms = device_ms(lambda: A.fused_attention(q, k, v, bias, seeds, rate))
         ms_rate0 = time_ms(lambda: A.fused_attention(q, k, v, bias), iters)
         plain_ms = time_ms(
             lambda: A.fused_attention_plain(q, k, v, bias, seeds, rate), iters)
@@ -208,7 +246,7 @@ def check_attention_dropout(gen, dev):
         cases.append(dict(
             dtype=str(dtype).split(".")[1], shape=[b, t, h, d], rate=rate,
             max_abs_err=err, max_rel_err=rel, tolerance=TOL[dtype], ms=ms,
-            ms_rate0=ms_rate0, plain_ms=plain_ms, library_ms=None,
+            device_ms=dev_ms, ms_rate0=ms_rate0, plain_ms=plain_ms, library_ms=None,
             bound_ms=bound_ms, bound_by=by,
         ))
         del q, k, v, got, want, again
@@ -248,14 +286,19 @@ def check_attention_bwd(gen, dev):
     from emotts_torch.ops import attention as A
 
     cases = []
-    h, d = 2, 192
-    for dtype, b, t, iters in ((torch.bfloat16, 16, 512, 3),
-                               (torch.bfloat16, 16, 1024, 2),
-                               (torch.float32, 8, 512, 3),
-                               (torch.float32, 3, 200, 5),
-                               (torch.bfloat16, 128, 320, 2),
-                               (torch.bfloat16, 16, 777, 2)):
-        q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t)
+    h = 2
+    # bf16 over 10 calls: over fewer, the host time of the first call shows
+    # in the wall time of a kernel that takes half a millisecond
+    for dtype, b, t, iters, d in ((torch.bfloat16, 16, 512, 10, 192),
+                                  (torch.bfloat16, 16, 1024, 10, 192),
+                                  (torch.float32, 8, 512, 3, 192),
+                                  (torch.float32, 3, 200, 5, 192),
+                                  (torch.bfloat16, 128, 320, 10, 192),
+                                  (torch.bfloat16, 16, 777, 10, 192),
+                                  # the other head dims' tensor-core instances
+                                  (torch.bfloat16, 8, 250, 10, 64),
+                                  (torch.bfloat16, 8, 250, 10, 256)):
+        q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t, d=d)
         dout = torch.randn(b, t, h, d, generator=gen).to(dev, dtype)
         size = q.element_size()
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
@@ -276,6 +319,8 @@ def check_attention_bwd(gen, dev):
             del want, again
             ms = time_ms(lambda: A.attention_backward(
                 q, k, v, bias, seeds, stats, dout, rate), iters)
+            dev_ms = device_ms(lambda: A.attention_backward(
+                q, k, v, bias, seeds, stats, dout, rate))
             plain_ms = time_ms(lambda: A.fused_attention_bwd_plain(
                 q, k, v, bias, dout, seeds, rate), iters)
             library_ms = None
@@ -298,7 +343,7 @@ def check_attention_bwd(gen, dev):
                 dtype=str(dtype).split(".")[1], shape=[b, t, h, d], rate=rate,
                 max_abs_err=max(e[0] for e in errs),
                 max_rel_err=max(e[1] for e in errs), tolerance=TOL[dtype],
-                repeat_equal_bits=True, ms=ms, plain_ms=plain_ms,
+                repeat_equal_bits=True, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
                 operations_algorithm=10 * b * h * t * t * d,
                 operations_as_designed=18 * b * h * t * t * d,
@@ -821,7 +866,7 @@ def train_profile_phase(cfg, dev):
     for batch in loader.epoch(0):
         first.setdefault(int(batch["emo_x"].shape[1]), batch)
     loader_ms = 1e3 * (time.perf_counter() - t0) / loader.batches_per_epoch(0)
-    groups = (("attention_forward", "attention_fwd_kernel"),
+    groups = (("attention_forward", "attention_fwd_"),
               ("attention_backward", "attention_bwd_"))
     # the loader alone, nothing else running: its thread shares the
     # interpreter with the step's launches while fit runs
@@ -846,13 +891,13 @@ def train_profile_phase(cfg, dev):
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and not e.key.startswith("Optimizer.")]
-        device_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+        step_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
         reading = dict(rows=2 * len(batch["lengths"]), wall_ms_per_step=wall_ms,
-                       device_ms_per_step=device_ms or None,
+                       device_ms_per_step=step_ms or None,
                        kernel_launches_per_step=sum(e.count for e in kernels) // steps)
-        if device_ms:
-            reading["device_idle_share"] = max(0.0, 1.0 - device_ms / wall_ms)
-            rest = device_ms
+        if step_ms:
+            reading["device_idle_share"] = max(0.0, 1.0 - step_ms / wall_ms)
+            rest = step_ms
             for label, needle in groups:
                 ms = sum(e.self_device_time_total for e in kernels
                          if needle in e.key) / steps / 1e3
@@ -979,6 +1024,9 @@ def main():
         "fused_mrf_stage": check_mrf(gen, dev, frames, chunk_rows),
         "fused_resblock1": check_resblock(gen, dev, frames, chunk_rows),
     }
+    for group in cases.values():
+        for case in group:
+            with_ratios(case)
     emit("kernels", cases=cases, dropout_mask=mask)
     torch.cuda.empty_cache()
 
@@ -1093,6 +1141,7 @@ def main():
                              and c["library_ms"] is not None), None),
             at=dict(dtype=head["dtype"], shape=head["shape"]),
         ))
+        with_ratios(kernels[-1])
     emit("done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

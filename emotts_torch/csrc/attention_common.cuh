@@ -1,9 +1,11 @@
 // What the attention forward and backward kernels share: the padded tile
-// row, the dropout generator and the tile loader.
+// row, the dropout generator and the tile loaders.
 #pragma once
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
+#include <cuda.h>  // CUtensorMap and its enumerations (types only)
 #include <stdint.h>
 
 namespace emotts {
@@ -62,6 +64,82 @@ __device__ __forceinline__ void load_rows(T* __restrict__ dst,
     dst[r * LD + d] = t < Tlen ? src[base + (long long)t * row_stride + d]
                                : from_float<T>(0.f);
   }
+}
+
+// Width of a bf16 tensor-core tile for head dim D: whole 64-column swizzle
+// blocks, the columns beyond D zero (they add nothing to a product over the
+// head dim, and the output columns they give are never written).
+template <int D>
+struct TcWidth {
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int NB = DP / 64;
+};
+
+// The tensor map of a bf16 (B, T, H, D) tensor for TMA copies of tiles of
+// `rows` rows of one (batch, head): dimensions (D, H, T, B) innermost first,
+// boxes of 64 columns x 1 head x `rows` rows x 1 example, 128-byte swizzle
+// (the layout of wgmma.cuh), elements outside the tensor (rows beyond T,
+// columns beyond D) read as zeros.  cuTensorMapEncodeTiled is a driver
+// function: it is looked up through the runtime, so nothing links libcuda.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline int tile_map(CUtensorMap* map, const void* data, int B, int T, int H,
+                    int D, int rows) {
+  static EncodeTiledFn encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(fn);
+  }();
+  if (encode == nullptr) return kErrTensorMap;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)T * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(data), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+// Start the TMA copy of rows t0 .. of one (batch, head) into a swizzled
+// tile of ROWS rows: one box per 64-column block, ROWS * DP * 2 bytes on
+// barrier `bar` (the caller has set them as the phase's expected count).
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_tile(uint32_t tile, const CUtensorMap& map,
+                                         uint32_t bar, int h, int t0, int b) {
+#pragma unroll
+  for (int n = 0; n < TcWidth<D>::NB; ++n)
+    wg::tma_load_4d(tile + n * ROWS * 128, &map, bar, 64 * n, h, t0, b);
+}
+
+// Round a finite fp32 value to the nearest bf16 (ties to even) with integer
+// operations: the bits of __float2bfloat16_rn, off the conversion unit that
+// the exponentials keep busy.
+__device__ __forceinline__ float round_bf16_alu(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+
+// The two bf16 values of a packed pair, as fp32.
+__device__ __forceinline__ float bf16_lo(uint32_t pair) {
+  return __uint_as_float(pair << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t pair) {
+  return __uint_as_float(pair & 0xFFFF0000u);
 }
 
 }  // namespace emotts

@@ -143,7 +143,9 @@ def check(code: int, what: str) -> None:
     if code == 0:
         return
     names = {1001: "shape or size the kernel does not take",
-             1002: "tile does not fit in shared memory"}
+             1002: "tile does not fit in shared memory",
+             1003: "tensor data not 16-byte aligned",
+             1004: "TMA tensor map could not be made"}
     if code in names:
         raise RuntimeError(f"{what}: {names[code]} (code {code})")
     raise RuntimeError(f"{what}: CUDA error {code} at launch")

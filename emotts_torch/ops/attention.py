@@ -24,7 +24,8 @@ module's own (B, T, H, D) layout is read with strides.  When a gradient is
 wanted the forward also writes each row's softmax maximum and sum (2·B·H·T
 floats) and the backward forms P from them; rowsum(dP ⊙ P) is summed from the
 same rounded P in a sweep of its own, as the reference sums it.  Both kernels
-are bound by operations and, in this version, run them on the fp32 FMA units;
+are bound by operations: bf16 runs every product on the tensor cores
+(``wgmma``, building blocks in ``csrc/wgmma.cuh``), fp32 on the FMA units;
 see the notes at the top of the sources.
 
 The dropout mask is a pure function of (seed[b], head, query, key): Philox4x32-10
@@ -38,6 +39,7 @@ kernel and plain version agree value for value at any rate.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional, Tuple
@@ -181,27 +183,33 @@ _BWD_ARGTYPES = [_P] * 11 + [_I] * 6 + [ctypes.c_uint32, ctypes.c_float, _P]
 
 
 def _check_inputs(q, k, v, bias, seeds, rate, extra=()) -> None:
-    """What both wrappers require of their inputs, on any device."""
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+    """What both wrappers require of their inputs, on any device.  Written
+    for few tensor-attribute reads: on the card a short call's wall time is
+    this host work."""
+    shape = q.shape
+    if len(shape) != 4 or k.shape != shape or v.shape != shape:
         raise ValueError(f"q, k, v must share one (B, T, H, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, t = q.shape[:2]
+    b, t = shape[0], shape[1]
     if bias.shape != (b, t):
         raise ValueError(f"bias must be (B, T) = {(b, t)}, got {tuple(bias.shape)}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
-    tensors = [("q", q), ("k", k), ("v", v), *extra]
-    if any(x.dtype != q.dtype or x.shape != q.shape for _, x in tensors):
-        raise ValueError("q, k, v (and dout) must share one shape and dtype")
-    if any(x.device != q.device for _, x in tensors + [("bias", bias)]):
-        raise ValueError("q, k, v, bias must lie on one device")
+    others = [k, v] + [x for _, x in extra]
+    dtype, device = q.dtype, q.device
+    for x in others:
+        if x.dtype != dtype or x.shape != shape:
+            raise ValueError("q, k, v (and dout) must share one shape and dtype")
+    for x in others + [bias]:
+        if x.device != device:
+            raise ValueError("q, k, v, bias must lie on one device")
     if rate > 0.0:
         if seeds is None:
             raise ValueError("dropout (rate > 0) needs per-example seeds")
         if seeds.shape != (b,) or seeds.dtype != torch.int32:
             raise ValueError(f"seeds must be (B,) = ({b},) int32, got "
                              f"{tuple(seeds.shape)} {seeds.dtype}")
-        if seeds.device != q.device:
+        if seeds.device != device:
             raise ValueError("seeds must lie on the device of q")
 
 
@@ -223,6 +231,14 @@ def _check_cuda(q, bias, seeds, rate, tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _launch_device(x: torch.Tensor):
+    """The device context of a launch; nothing to switch when it is current
+    (the switch costs host time that a short launch notices)."""
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
+
+
 def attention_forward(q, k, v, bias, seeds=None, rate: float = 0.0,
                       want_stats: bool = False):
     """The forward wrapper: (out, stats).  ``stats`` is the (2, B, H, T) fp32
@@ -241,7 +257,7 @@ def attention_forward(q, k, v, bias, seeds=None, rate: float = 0.0,
     fn = _entry("emotts_attention_fwd", "attention", _FWD_ARGTYPES)
     drop = rate > 0.0
     global launch_count
-    with torch.cuda.device(q.device):
+    with _launch_device(q):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                   seeds.data_ptr() if drop else None, out.data_ptr(),
                   None if stats is None else stats.data_ptr(),
@@ -272,7 +288,7 @@ def attention_backward(q, k, v, bias, seeds, stats, dout, rate: float = 0.0):
     fn = _entry("emotts_attention_bwd", "attention_bwd", _BWD_ARGTYPES)
     drop = rate > 0.0
     global bwd_launch_count
-    with torch.cuda.device(q.device):
+    with _launch_device(q):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                   seeds.data_ptr() if drop else None,
                   stats.data_ptr(), dout.data_ptr(), dq.data_ptr(),

@@ -103,3 +103,18 @@ def test_multi_head_self_attention_matches_flax(fused):
     with torch.no_grad():
         got = tm(torch.from_numpy(x), torch.from_numpy(valid))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("code,reason", [
+    (1001, "shape or size"), (1002, "shared memory"), (1003, "16-byte aligned"),
+    (1004, "tensor map"), (700, "CUDA error 700"),
+])
+def test_kernel_return_codes_raise_with_their_reason(code, reason):
+    """A C entry point's non-zero return is raised with what it means (the
+    bf16 kernels add 1003 for misaligned data and 1004 for a TMA tensor map
+    the driver refused); 0 passes."""
+    from emotts_torch.ops import _build
+
+    _build.check(0, "entry")
+    with pytest.raises(RuntimeError, match=reason):
+        _build.check(code, "entry")

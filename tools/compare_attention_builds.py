@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels of two checkouts on one GPU, in turns.
+
+    git archive <parent> | tar -x -C _archive_check/parent
+    python3 tools/compare_attention_builds.py _archive_check/parent
+
+Each checkout builds its own kernels (both builds started together), then
+each runs the bf16 attention cases of ``chip_smoke.py``'s kernels phase in a
+process of its own, in the order parent, this, this, parent, on inputs made
+from one seed.  A case reports the wall time of a wrapper call (CUDA events
+around back-to-back calls: for a short kernel, the wrapper's host time) and
+its device time (the calls queued behind a sleep kernel, so that the card
+runs them back to back).  Prints one JSON line per run, then one with the
+means of both runs of each checkout.  Needs one GPU and nvcc.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+SEED = 1234
+# (label, kind, b, t, d, rate): chip_smoke.py's bf16 attention cases
+CASES = [
+    ("fwd", 60, 48, 192, 0.0), ("fwd", 3, 200, 192, 0.0), ("fwd", 60, 1024, 192, 0.0),
+    ("fwd", 8, 250, 64, 0.0), ("fwd", 8, 250, 256, 0.0),
+    ("fwd", 16, 512, 192, 0.1), ("fwd", 16, 1024, 192, 0.1),
+    ("bwd", 16, 512, 192, 0.0), ("bwd", 16, 512, 192, 0.1),
+    ("bwd", 16, 1024, 192, 0.0), ("bwd", 16, 1024, 192, 0.1),
+    ("bwd", 128, 320, 192, 0.0), ("bwd", 128, 320, 192, 0.1),
+    ("bwd", 16, 777, 192, 0.0), ("bwd", 16, 777, 192, 0.1),
+    ("bwd", 8, 250, 64, 0.0), ("bwd", 8, 250, 256, 0.0),
+]
+
+
+def worker(tree, build_only):
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from emotts_torch.ops import _build
+    from emotts_torch.ops import attention as A
+
+    if build_only:
+        _build.build_all(["attention", "attention_bwd"])
+        return
+    dev = torch.device("cuda", 0)
+
+    def wall_ms(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+
+    def device_ms(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(2_000_000 * iters)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+
+    out = []
+    for kind, b, t, d, rate in CASES:
+        gen = torch.Generator().manual_seed(SEED)
+        q, k, v, dout = (torch.randn(b, t, 2, d, generator=gen).to(dev, torch.bfloat16)
+                         for _ in range(4))
+        lens = torch.randint(1, t + 1, (b,), generator=gen)
+        lens[0], lens[1] = t, 0
+        bias = ((torch.arange(t)[None, :] >= lens[:, None]).float() * -1e9).to(dev)
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (b,), generator=gen).to(dev, torch.int32)
+        if kind == "fwd":
+            def fn():
+                return A.fused_attention(q, k, v, bias, seeds, rate)
+        else:
+            _, stats = A.attention_forward(q, k, v, bias, seeds, rate, want_stats=True)
+
+            def fn():
+                return A.attention_backward(q, k, v, bias, seeds, stats, dout, rate)
+        out.append(dict(case=f"{kind} ({b},{t},2,{d}) rate {rate}",
+                        wall_ms=wall_ms(fn), device_ms=device_ms(fn)))
+    print(json.dumps(dict(tree=tree, cases=out)), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("parent", help="a checkout of the commit to compare with")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        return worker(args.worker, args.build_only)
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trees = {"parent": os.path.abspath(args.parent), "this": here}
+    me = os.path.abspath(__file__)
+    builds = [subprocess.Popen([sys.executable, me, "x", "--worker", tree, "--build-only"])
+              for tree in trees.values()]
+    if any(p.wait() for p in builds):
+        sys.exit("a build failed")
+    runs = {name: [] for name in trees}
+    for name in ("parent", "this", "this", "parent"):
+        res = subprocess.run([sys.executable, me, "x", "--worker", trees[name]],
+                             capture_output=True, text=True, check=True)
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        print(json.dumps(dict(run=name, **line)), flush=True)
+        runs[name].append(line["cases"])
+    summary = []
+    for i, (kind, b, t, d, rate) in enumerate(CASES):
+        row = dict(case=runs["this"][0][i]["case"])
+        for name in trees:
+            for key in ("wall_ms", "device_ms"):
+                row[f"{name}_{key}"] = sum(r[i][key] for r in runs[name]) / len(runs[name])
+        summary.append(row)
+    print(json.dumps({"summary": summary}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
