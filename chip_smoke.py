@@ -18,7 +18,9 @@ a non-zero exit:
               256 for the other instances; fp32 on the FMA units; each with
               its device time, launches queued behind a sleep kernel, beside
               the wall time),
-              MRF stage, ResBlock
+              MRF stage, ResBlock (on the tensor cores, 3xTF32 for fp32;
+              each case with its tiles and launches, the operations its
+              design does and the tensor rate that implies)
  4. serve     the full-width model behind the HTTP server: /health, a cold
               and three warm /synthesize, one /batch
  5. sweep     Synthesizer.intensity_sweep, 60 utterances in one batch
@@ -366,6 +368,23 @@ def _chain_ops(b, t, c, ks, n_d=3):
     return 2 * b * t * sum(2 * n_d * k for k in ks) * c * c
 
 
+def _as_designed(b, t, c, chains, split, algorithm_ops, ms):
+    """What the vocoder kernels' design computes, beside the algorithm:
+    ``chains`` is [(kernel size, dilations, tile), ...], one per chain a tile
+    runs (csrc/resblock_common.cuh::resblock_chain); ``split`` is the tensor
+    products a term (3 for 3xTF32, 1 for one TF32 product).  halo_ratio:
+    rows computed per row kept, weighted by taps; operations_as_designed:
+    split x halo_ratio x algorithm operations; tensor_tflops: what those
+    take per second at the kernel's time."""
+    from emotts_torch.ops.resblock import chain_rows
+
+    rows = sum(-(-t // tile) * chain_rows(k, dil, tile) for k, dil, tile in chains)
+    ops = 2 * b * rows * c * c * split
+    return dict(halo_ratio=ops / split / algorithm_ops, split=split,
+                operations=algorithm_ops, operations_as_designed=ops,
+                tensor_tflops=ops / (ms * 1e-3) / 1e12)
+
+
 def check_resblock(gen, dev, frames, batch):
     from emotts_torch.ops import resblock as R
 
@@ -386,12 +405,18 @@ def check_resblock(gen, dev, frames, batch):
             plain_ms = time_ms(lambda: R.fused_resblock1_plain(x, *w, dil), 2)
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
             nbytes = 2 * x.numel() * x.element_size() + sum(a.numel() * 4 for a in w)
-            bound_ms, by = bound(_chain_ops(rows, t, c, (k,)), peak, nbytes)
+            ops = _chain_ops(rows, t, c, (k,))
+            bound_ms, by = bound(ops, peak, nbytes)
+            plan = [(first, last, min(tile, -(-t // 8) * 8))
+                    for first, last, tile in R.launch_plan(c, k, dil)]
             cases.append(dict(
                 dtype=str(dtype).split(".")[1], shape=[rows, t, c], k=k,
-                cuda_launches=len(R.launch_plan(c, k, dil)), max_abs_err=err,
-                max_rel_err=rel, tolerance=TOL[dtype], ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound_ms, bound_by=by,
+                cuda_launches=len(plan), tiles=[p[2] for p in plan],
+                max_abs_err=err, max_rel_err=rel, tolerance=TOL[dtype], ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=by,
+                # 3xTF32 in both instances: the residual is an fp32 sum
+                **_as_designed(rows, t, c, [(k, dil[a:b], tile) for a, b, tile in plan],
+                               3, ops, ms),
             ))
     return cases
 
@@ -400,7 +425,7 @@ def check_mrf(gen, dev, frames, batch):
     from emotts_torch.ops import mrf as M
 
     cases = []
-    ks = (3, 7, 11)
+    ks, dil = (3, 7, 11), (1, 3, 5)
     for dtype in (torch.float32, torch.bfloat16):
         # the main path's three stages, then short sequences whose lengths
         # are a multiple of no tile (edge masks, ragged last tile)
@@ -408,9 +433,9 @@ def check_mrf(gen, dev, frames, batch):
                             (32, batch, 256 * frames), (128, 2, 777), (32, 3, 333)):
             x = torch.randn(rows, t, c, generator=gen).to(dev, dtype)
             params = [_block_weights(gen, dev, c, k) for k in ks]
-            got = M.fused_mrf_stage(x, params, ks)
+            got = M.fused_mrf_stage(x, params, ks, dil)
             torch.cuda.synchronize()
-            want = M.fused_mrf_stage_plain(x, params, ks)
+            want = M.fused_mrf_stage_plain(x, params, ks, dil)
             err, rel = compare(got, want, **TOL[dtype])
             del got, want
             ms = time_ms(lambda: M.fused_mrf_stage(x, params, ks), 2)
@@ -418,12 +443,20 @@ def check_mrf(gen, dev, frames, batch):
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
             nbytes = (2 * x.numel() * x.element_size()
                       + sum(a.numel() * 4 for blk in params for a in blk))
-            bound_ms, by = bound(_chain_ops(rows, t, c, ks), peak, nbytes)
+            ops = _chain_ops(rows, t, c, ks)
+            bound_ms, by = bound(ops, peak, nbytes)
+            plan = [(rb, j, min(tile, -(-t // 8) * 8))
+                    for rb, j, tile in M.launch_plan(c, ks, dil)]
+            chains = ([(k, dil, plan[0][2]) for k in ks] if plan[0][0] is None
+                      else [(ks[rb], (dil[j],), tile) for rb, j, tile in plan])
             cases.append(dict(
                 dtype=str(dtype).split(".")[1], shape=[rows, t, c],
-                tile=M.stage_tile(c, ks, (1, 3, 5)), max_abs_err=err,
-                max_rel_err=rel, tolerance=TOL[dtype], ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound_ms, bound_by=by,
+                cuda_launches=len(plan), tiles=[p[2] for p in plan],
+                max_abs_err=err, max_rel_err=rel, tolerance=TOL[dtype], ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=by,
+                # bf16: operands exact in bf16, one TF32 product a term
+                **_as_designed(rows, t, c, chains,
+                               1 if dtype == torch.bfloat16 else 3, ops, ms),
             ))
             del x, params
             torch.cuda.empty_cache()
@@ -1045,21 +1078,26 @@ def main():
                     fused_resblock1=resblock.launch_count)
     counter.close()
 
-    f2 = cfg.fastspeech2
+    f2, v = cfg.fastspeech2, cfg.train_vocoder
     per_vocode_resblock = sum(
         len(resblock.launch_plan(256, k, d)) for k, d in zip(
-            cfg.train_vocoder.resblock_kernel_sizes,
-            cfg.train_vocoder.resblock_dilations))
+            v.resblock_kernel_sizes, v.resblock_dilations))
+    # the stages with C = 128, 64, 32; C = 128 takes one launch per dilation
+    # step of each ResBlock
+    per_vocode_mrf = sum(
+        len(mrf.launch_plan(c, v.resblock_kernel_sizes, v.resblock_dilations[0]))
+        for c in (128, 64, 32))
     expected = dict(
         fused_attention=(f2.enc_num_layers + f2.dec_num_layers) * counter.fs2,
-        fused_mrf_stage=3 * counter.vocoder,  # the stages with C = 128, 64, 32
+        fused_mrf_stage=per_vocode_mrf * counter.vocoder,
         # the C = 256 stage: one ResBlock wrapper call per kernel size; k = 7
         # and k = 11 take one CUDA launch per dilation step there
         fused_resblock1=per_vocode_resblock * counter.vocoder,
     )
     emit("launches", counted=launches, expected=expected,
          fs2_forwards=counter.fs2, generator_forwards=counter.vocoder,
-         resblock_cuda_launches_per_generator_forward=per_vocode_resblock)
+         resblock_cuda_launches_per_generator_forward=per_vocode_resblock,
+         mrf_cuda_launches_per_generator_forward=per_vocode_mrf)
     if launches != expected or min(launches.values()) == 0:
         raise AssertionError(f"launch counters {launches}, expected {expected}")
     del synth

@@ -141,12 +141,14 @@ class HiFiGANGenerator(nn.Module):
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel: (B, T, n_mels) → waveform (B, T·∏rates)."""
-        dt = mel.dtype
-        x = conv1d_btc(mel, self.conv_pre_kernel.to(dt), 1) + self.conv_pre_bias.to(dt)
+        # the reference's type promotion: the conv runs in the mel's dtype,
+        # and its fp32 bias makes x fp32 from here on (a bf16 mel gives an
+        # fp32 generator after the first conv)
+        x = conv1d_btc(mel, self.conv_pre_kernel.to(mel.dtype), 1) + self.conv_pre_bias
         n_k = len(self.resblock_kernel_sizes)
         for i, u in enumerate(self.upsample_rates):
             x = F.leaky_relu(x, LRELU_SLOPE)
-            x = _conv_transpose1d_btc(x, self.up_kernels[i], u) + self.up_biases[i].to(dt)
+            x = _conv_transpose1d_btc(x, self.up_kernels[i], u) + self.up_biases[i]
             x = x.contiguous()
             blocks = self.resblocks[i * n_k:(i + 1) * n_k]
             if self._stage_is_fused(x.shape[2]):
@@ -161,7 +163,7 @@ class HiFiGANGenerator(nn.Module):
                     acc = y if acc is None else acc + y
                 x = acc / n_k
         x = F.leaky_relu(x, LRELU_SLOPE)
-        x = conv1d_btc(x, self.conv_post_kernel.to(dt), 1) + self.conv_post_bias.to(dt)
+        x = conv1d_btc(x, self.conv_post_kernel.to(x.dtype), 1) + self.conv_post_bias
         return torch.tanh(x)[..., 0]  # (B, T·256)
 
 

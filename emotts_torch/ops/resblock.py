@@ -10,7 +10,9 @@ store.  The kernel is ``csrc/resblock.cu``: one block per (batch row, time
 tile) keeps the tile and its halo in shared memory through the chain and
 forces rows outside [0, T) to zero after both convs of every step.  It is
 bound by operations (2·B·T·6k·C² against 2·B·T·C·itemsize bytes) and runs
-them as fp32 FMA, not TF32.
+them on the tensor cores as 3xTF32: each operand split into two TF32 values
+and three products a term, a documented emulation of fp32 that keeps the
+result within the fp32 tolerance of the plain version.
 
 Shared memory decides how much of a chain one launch can take
 (:func:`launch_plan`): where the window of the whole chain leaves no room
@@ -34,9 +36,22 @@ LRELU_SLOPE = 0.1
 launch_count = 0
 
 SMEM_FLOATS = 232448 // 4  # dynamic shared memory a block may use on sm_90
-SLAB_FLOATS = 2048  # weight slab of the kernel (csrc/resblock_common.cuh)
 SUPPORTED_CHANNELS = (32, 64, 128, 256)
 MAX_TILE = 512
+
+
+# The shared-memory geometry of csrc/resblock_common.cuh (kRingStages,
+# chunk_rows, ring_floats, row_floats): a ring of two weight chunks, each C
+# output rows of KC input channels, and activation rows of C floats.
+def ring_floats(channels: int) -> int:
+    """Floats of the kernels' weight ring."""
+    kc = 16 if channels >= 256 else (32 if channels >= 128 else channels)
+    return 2 * channels * kc
+
+
+def row_floats(channels: int) -> int:
+    """Row stride of the activation buffers, in floats."""
+    return channels
 
 
 def chain_halo(kernel_size: int, dilations: Sequence[int]) -> int:
@@ -46,12 +61,48 @@ def chain_halo(kernel_size: int, dilations: Sequence[int]) -> int:
     return sum(r * d + r for d in dilations)
 
 
-def _tile_for(channels: int, halo: int) -> int:
-    """Largest tile (a multiple of 8 rows) whose window and intermediate fit
-    in shared memory beside the weight slab; 0 if none does."""
-    rows = (SMEM_FLOATS - SLAB_FLOATS) // (2 * (channels + 1))
-    tile = min((rows - 2 * halo) // 8 * 8, MAX_TILE)
+def chain_rows(kernel_size: int, dilations: Sequence[int], tile: int) -> int:
+    """Rows × taps the convs of one chain compute for one tile, halo rows
+    included, as resblock_chain in csrc/resblock_common.cuh runs it (conv1
+    of a step over the rows that later steps still need plus r a side, conv2
+    over those rows).  Over ``len(dilations) · 2 · k · tile`` it is the
+    design's computed rows per row kept."""
+    r = (kernel_size - 1) // 2
+    rem = chain_halo(kernel_size, dilations)
+    rows = 0
+    for d in dilations:
+        rem -= r * d + r
+        rows += (tile + 2 * (rem + r)) + (tile + 2 * rem)
+    return rows * kernel_size
+
+
+def tile_for(channels: int, halo: int, z_offset: int = 0) -> int:
+    """Largest tile (a multiple of 8 rows) whose window (tile + 2·halo rows)
+    and intermediate (the window less ``z_offset`` rows a side, see
+    ``z_offset`` in csrc/resblock_common.cuh) fit in shared memory beside the
+    weight ring; 0 if none does."""
+    rows = (SMEM_FLOATS - ring_floats(channels)) // row_floats(channels)
+    tile = min((rows - 4 * halo + 2 * z_offset) // 2 // 8 * 8, MAX_TILE)
     return max(tile, 0)
+
+
+def fit_pass(channels: int, tile: int, extra: int) -> int:
+    """The tile, shortened by up to a tenth where that saves the kernel's
+    conv core a pass over the weights: its longest conv computes tile +
+    ``extra`` rows, and a pass covers MT m16 tiles for each of the
+    8 / WARPS_N row groups of warps (ConvGeom and warp_m_tiles in
+    csrc/resblock_common.cuh)."""
+    m_tiles = 6 if channels == 32 else 3
+    rows = (8 // max(1, channels // 64)) * m_tiles * 16
+    passes = -(-(tile + extra) // rows)
+    shorter = ((passes - 1) * rows - extra) // 8 * 8
+    return shorter if passes > 1 and shorter >= 0.9 * tile else tile
+
+
+def z_offset(kernel_size: int, dilations: Sequence[int], halo: int) -> int:
+    """Rows a side of the window that a chain's intermediate never holds."""
+    r = (kernel_size - 1) // 2
+    return halo - chain_halo(kernel_size, dilations) + r * dilations[0]
 
 
 def launch_plan(channels: int, kernel_size: int,
@@ -61,12 +112,15 @@ def launch_plan(channels: int, kernel_size: int,
     tile is at least as long as its halo (so that no more than about two rows
     are computed per row kept); else one launch per step."""
     halo = chain_halo(kernel_size, dilations)
-    tile = _tile_for(channels, halo)
+    z_off = z_offset(kernel_size, dilations, halo)
+    tile = fit_pass(channels, tile_for(channels, halo, z_off), 2 * (halo - z_off))
     if tile >= max(halo, 8):
         return [(0, len(dilations), tile)]
     plan = []
     for i, d in enumerate(dilations):
-        tile = _tile_for(channels, chain_halo(kernel_size, (d,)))
+        h = chain_halo(kernel_size, (d,))
+        z_off = z_offset(kernel_size, (d,), h)
+        tile = fit_pass(channels, tile_for(channels, h, z_off), 2 * (h - z_off))
         if tile < 8:
             raise ValueError(
                 f"ResBlock1 with C={channels}, k={kernel_size}, d={d} does "
@@ -161,6 +215,8 @@ def fused_resblock1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     fn = _lib()
     global launch_count
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    # the kernel reads the weights as (tap, out, in)
+    w1, w2 = (w.transpose(-1, -2).contiguous() for w in (w1, w2))
     for first, last, tile in launch_plan(c, k, dilations):
         out = torch.empty_like(x)
         dils = (ctypes.c_int * (last - first))(*dilations[first:last])

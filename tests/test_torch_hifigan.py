@@ -69,3 +69,26 @@ def test_structure_from_params_and_npz_round_trip(tmp_path):
     assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
     with pytest.raises(ValueError):
         load_vocoder_checkpoint("generator.pt")
+
+
+@pytest.mark.parametrize("flags", [
+    dict(),
+    dict(fused_mrf=True, use_pallas_resblocks=True),
+], ids=["plain", "mrf+resblock-kernel"])
+def test_bf16_mel_follows_the_reference_type_promotion(rng, flags):
+    """A bf16 mel: both generators run the first conv in bf16, then its fp32
+    bias makes x fp32 (the reference's type promotion), so the rest runs in
+    fp32 on both sides and the waveform is fp32.  Tolerance: the fp32
+    comparison's, with atol 1e-4 for a conv_pre output that the two
+    frameworks' bf16 convs might round to neighbouring values (none does at
+    this seed: 5.5e-6 apart); a generator that stays in bf16 after the first
+    conv misses by 0.1."""
+    jgen, tree = vocoder_params(**flags)
+    mel = rng.standard_normal((2, 11, SMALL_VOCODER["in_channels"])).astype(np.float32)
+    ref = jgen.apply(tree, jnp.asarray(mel, jnp.bfloat16))
+    tgen = HiFiGANGenerator(**SMALL_VOCODER, **flags)
+    tgen.load_state_dict(hifigan_from_flax(tree))
+    with torch.no_grad():
+        got = tgen.eval()(torch.from_numpy(mel).bfloat16())
+    assert ref.dtype == jnp.float32 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)

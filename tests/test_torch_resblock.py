@@ -11,7 +11,8 @@ import torch
 from emotts.ops.resblock import fused_resblock1 as jax_fused_resblock1
 from emotts.ops.resblock import resblock1_reference
 from emotts_torch.ops import resblock as tr
-from tests.torch_port_util import single_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    conv1d_btc_3xtf32, single_torch_thread)
 
 # fp32 on both sides, different summation order over k·C products per output
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -64,7 +65,11 @@ def test_launch_plan_fits_shared_memory(channels, k, expected):
     assert plan[-1][1] == 3
     for first, last, tile in plan:
         halo = tr.chain_halo(k, dil[first:last])
-        floats = tr.SLAB_FLOATS + 2 * (tile + 2 * halo) * (channels + 1)
+        # weight ring, window, and the intermediate without the rows of the
+        # window it never holds
+        z_off = tr.z_offset(k, dil[first:last], halo)
+        floats = (tr.ring_floats(channels)
+                  + (2 * tile + 4 * halo - 2 * z_off) * tr.row_floats(channels))
         assert tile >= 8 and tile % 8 == 0 and floats <= tr.SMEM_FLOATS
 
 
@@ -78,3 +83,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
         tr.fused_resblock1(*args, (1, 3))  # one dilation short of the weights
     with pytest.raises(ValueError):
         tr.fused_resblock1(args[0], args[1].double(), *args[2:], (1, 3, 5))
+
+
+def test_3xtf32_design_holds_the_fp32_tolerance(rng, monkeypatch):
+    """The CUDA kernel's arithmetic, emulated in plain torch: every conv of
+    a C = 64, k = 11 ResBlock1 as 3xTF32 stays within the kernels' fp32
+    tolerance (chip_smoke.py: 2e-4 abs and rel) of the fp32 plain version."""
+    x, params = _case(rng, 64, 11, 100)
+    x, params = torch.from_numpy(x), [torch.from_numpy(p) for p in params]
+    want = tr.fused_resblock1_plain(x, *params, (1, 3, 5))
+    monkeypatch.setattr(tr, "conv1d_btc", conv1d_btc_3xtf32)
+    got = tr.fused_resblock1_plain(x, *params, (1, 3, 5))
+    assert bool(((got - want).abs() <= 2e-4 + 2e-4 * want.abs()).all())
+
+
+@pytest.mark.parametrize("tile,ratio", [(64, 1.686), (128, 1.343), (256, 1.171)])
+def test_chain_rows_counts_the_halo_work(tile, ratio):
+    """Rows computed per row kept over an MRF stage (k = 3/7/11, d = 1/3/5),
+    weighted by taps; a chain of one step with no halo computes its tile and
+    2r rows more in conv1."""
+    dil = (1, 3, 5)
+    rows = sum(tr.chain_rows(k, dil, tile) for k in (3, 7, 11))
+    assert rows / (2 * 3 * 21 * tile) == pytest.approx(ratio, abs=1e-3)
+    assert tr.chain_rows(11, (5,), 32) == 11 * ((32 + 10) + 32)

@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from emotts_torch.ops.resblock import conv1d_btc
+
 SMALL_VOCODER = dict(
     in_channels=8,
     upsample_initial_channel=64,
@@ -146,3 +148,26 @@ def rank_batch(seed=0, b=4, t=24, n_mels=8, n_emotions=3):
     emotions = rng.integers(0, n_emotions, size=b).astype(np.int32)
     lambdas = rng.uniform(0.0, 1.0, size=(2, b)).astype(np.float32)
     return emo_x, neu_x, emotions, lengths, lambdas
+
+
+def tf32_round(x):
+    """fp32 → TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32`` does: integer operations on the fp32 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def conv1d_btc_3xtf32(x, w, dilation):
+    """The vocoder kernels' conv arithmetic in plain torch: each operand
+    split into hi = tf32(v) and lo = tf32(v - hi), and the products
+    a_lo·b_hi + a_hi·b_lo + a_hi·b_hi summed in fp32 (products of two TF32
+    values are exact in fp32)."""
+    xh, wh = tf32_round(x), tf32_round(w)
+    xl, wl = tf32_round(x - xh), tf32_round(w - wh)
+    return (conv1d_btc(xl, wh, dilation) + conv1d_btc(xh, wl, dilation)
+            + conv1d_btc(xh, wh, dilation))
+
+
+def conv1d_btc_tf32(x, w, dilation):
+    """One TF32 product a term: the bf16 MRF instance's arithmetic."""
+    return conv1d_btc(tf32_round(x), tf32_round(w), dilation)
