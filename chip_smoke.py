@@ -36,6 +36,16 @@ a non-zero exit:
     reading of where a train step's time goes)
 11. train parity  one fp32 train step through the kernels against the same
               step through the plain forward and backward
+12. fs2_train FS2Trainer.fit at full width (bf16, dropout 0.1/0.5, fused
+              attention) on the same corpus, conditioned on phase 8's best/
+              extractor; checkpoint, best/, resume, the attention launches of
+              one step and of the phase, a profiler reading of a step at
+              every frame bucket
+13. fs2_train_parity  one fp32 FS2 train step through the kernels against
+              the same step through the plain versions
+14. stream    load_synthesizer from the two experiment directories and a
+              seeded .npz vocoder: chunked against unchunked vocoding, warm
+              time-to-first-audio, a streamed POST /synthesize, launches
 
 The last line is {"ok": true, "device": {...}}; before it stand the card line
 and one {"kernels": [...]} line.  Without a GPU the script exits non-zero and
@@ -43,6 +53,7 @@ prints no result.
 """
 
 import base64
+import copy
 import io
 import json
 import math
@@ -52,7 +63,6 @@ import sys
 import tempfile
 import threading
 import time
-import urllib.error
 import urllib.request
 import wave
 
@@ -228,7 +238,10 @@ def check_attention_dropout(gen, dev):
     for dtype, b, t, iters in ((torch.bfloat16, 16, 512, 5),
                                (torch.bfloat16, 16, 1024, 3),
                                (torch.float32, 8, 512, 5),
-                               (torch.float32, 3, 200, 10)):
+                               (torch.float32, 3, 200, 10),
+                               # FastSpeech2's encoder at batch 8 (phone buckets)
+                               (torch.bfloat16, 8, 48, 20),
+                               (torch.bfloat16, 8, 144, 20)):
         q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t)
         got = A.fused_attention(q, k, v, bias, seeds, rate)
         torch.cuda.synchronize()
@@ -297,6 +310,9 @@ def check_attention_bwd(gen, dev):
                                   (torch.float32, 3, 200, 5, 192),
                                   (torch.bfloat16, 128, 320, 10, 192),
                                   (torch.bfloat16, 16, 777, 10, 192),
+                                  # FastSpeech2's encoder at batch 8 (phone buckets)
+                                  (torch.bfloat16, 8, 48, 20, 192),
+                                  (torch.bfloat16, 8, 144, 20, 192),
                                   # the other head dims' tensor-core instances
                                   (torch.bfloat16, 8, 250, 10, 64),
                                   (torch.bfloat16, 8, 250, 10, 256)):
@@ -612,14 +628,6 @@ def serve_phase(cfg, synth):
             check_audio(wav_samples(base64.b64decode(w))[0], cfg, 1, "/batch")
             for w in wavs)
         results.append(dict(request="batch_of_2", latency_ms=ms, audio_s=seconds))
-        # a streaming request must be refused, not answered unstreamed
-        try:
-            post(base, "/synthesize", {"text": "x", "speaker": 0, "emotion": 0,
-                                       "stream": True})
-            raise AssertionError("a streaming request was not refused")
-        except urllib.error.HTTPError as e:
-            if e.code != 501:
-                raise AssertionError(f"streaming request: HTTP {e.code}")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -689,16 +697,24 @@ TRAIN_LR = 3e-5  # the default 1e-6 moves nothing in a few tens of steps
 
 
 def make_rank_corpus(root, cfg, seed, utts_per_cell=6):
-    """A preprocessed corpus in the format RankPairDataset reads, made with
-    numpy from ``seed``: ``<speaker>/<emotion>_<id>.npz`` with ``mel``
-    (n_mels, T), ``pitch`` (T,), ``energy`` (T,), and ``train.txt`` /
-    ``test.txt`` lines ``speaker|emotion|emo_id|neu_id``.
+    """A preprocessed corpus in the format RankPairDataset and FS2Dataset
+    read, made with numpy from ``seed``: ``<speaker>/<emotion>_<id>.npz``
+    with ``mel`` (n_mels, T), ``pitch`` (T,), ``energy`` (T,), ``phones``
+    (P,) ARPABET symbols with ``durations`` (P,) of at least one frame
+    summing to T (about six frames a phone), ``speaker``, ``emotion``,
+    ``transcript`` and ``audio_path``; ``train.txt`` / ``test.txt`` lines
+    ``speaker|emotion|emo_id|neu_id``, and ``fs2_train.txt`` /
+    ``fs2_valid.txt`` from the port's ``build_fs2_splits``.
 
     An utterance's length class follows its id, so the pairs spread over the
     frame buckets up to the largest.  An emotional utterance is a neutral-like
     one plus its emotion's seeded channel offset at a per-utterance strength:
     something to rank."""
+    from emotts_torch.data.splits import build_fs2_splits
+    from emotts_torch.text.vocab import VALID_SYMBOLS
+
     rng = np.random.default_rng(seed)
+    text_rng = np.random.default_rng(seed + 1)  # leaves the features as they were
     n_ch = cfg.audio.n_mels + 2
     length_classes = [(150, 190), (250, 318), (420, 510), (600, 760),
                       (800, 1020), (200, 300)]
@@ -714,8 +730,14 @@ def make_rank_corpus(root, cfg, seed, utts_per_cell=6):
                 x = (x + np.roll(x, 1, axis=1) + np.roll(x, 2, axis=1)) / np.sqrt(3.0)
                 if ei > 0:
                     x += rng.uniform(0.3, 1.0) * offsets[ei][:, None]
+                p = min(t // 6, max(cfg.bucketing.phone_buckets))
+                durations = text_rng.multinomial(t - p, np.full(p, 1.0 / p)) + 1
+                phones = text_rng.choice(VALID_SYMBOLS, size=p)
                 np.savez(os.path.join(root, speaker, f"{emotion}_{i:04d}.npz"),
-                         mel=x[:-2], pitch=x[-2], energy=x[-1])
+                         mel=x[:-2], pitch=x[-2], energy=x[-1], phones=phones,
+                         durations=durations.astype(np.int32), speaker=speaker,
+                         emotion=emotion, transcript=" ".join(phones).lower(),
+                         audio_path=f"{speaker}/{emotion}_{i:04d}.wav")
     train, test = [], []
     for speaker in cfg.data.speakers:
         for emotion in cfg.data.emotions[1:]:
@@ -728,7 +750,9 @@ def make_rank_corpus(root, cfg, seed, utts_per_cell=6):
     for name, lines in (("train.txt", train), ("test.txt", test)):
         with open(os.path.join(root, name), "w") as f:
             f.write("\n".join(lines) + "\n")
-    return dict(train_pairs=len(train), test_pairs=len(test))
+    fs2_train, fs2_valid = build_fs2_splits(cfg)
+    return dict(train_pairs=len(train), test_pairs=len(test),
+                fs2_train=len(fs2_train), fs2_valid=len(fs2_valid))
 
 
 def rank_config(root, compute_dtype="bfloat16"):
@@ -748,23 +772,37 @@ def rank_config(root, compute_dtype="bfloat16"):
     return cfg
 
 
-class ExtractorCounter:
-    """Counts forwards of every IntensityExtractor, to say how many attention
-    launches to expect."""
+class ModuleCounter:
+    """Counts forwards of every module of a class (every IntensityExtractor,
+    every FastSpeech2), to say how many attention launches to expect;
+    ``training_forwards`` are those called with ``deterministic=False``, each
+    followed by one backward in a train step."""
 
-    def __init__(self):
-        from emotts_torch.nn.intensity import IntensityExtractor
+    def __init__(self, cls):
+        self.forwards = self.training_forwards = 0
 
-        self.forwards = 0
-
-        def hook(module, args, output):
-            if isinstance(module, IntensityExtractor):
+        def hook(module, args, kwargs, output):
+            if isinstance(module, cls):
                 self.forwards += 1
+                self.training_forwards += kwargs.get("deterministic") is False
 
-        self._hook = torch.nn.modules.module.register_module_forward_hook(hook)
+        self._hook = torch.nn.modules.module.register_module_forward_hook(
+            hook, with_kwargs=True)
 
     def close(self):
         self._hook.remove()
+
+
+def same_bits(a, b):
+    """Nested dicts, lists and tensors equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
 
 
 def read_metrics(exp):
@@ -881,41 +919,32 @@ def serve_with_bank(weights, bank):
     return dict(samples=int(wav.size), peak=float(np.abs(wav).max()))
 
 
-def train_profile_phase(cfg, dev):
-    """Where a train step's time goes, at the smallest and the largest frame
-    bucket: wall time of a step, and the device time of its kernels by name
-    from a torch.profiler trace of three steps.  A reading, not a check: it
-    only fails if a step fails."""
+def profile_steps(trainer, batches, rows, timed=5, traced=3, host_ops=True):
+    """Where a train step's time goes, for each of ``batches`` (keyed by
+    frame bucket): wall time of a step, and the device time of its kernels
+    by name from a torch.profiler trace of ``traced`` steps (``host_ops``:
+    the host's operators traced too).  A reading, not a check: it only fails
+    if a step fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from emotts_torch.train.rank_trainer import RankTrainer
-
-    trainer = RankTrainer(cfg, device=dev)
-    first = {}
-    loader = trainer._loader("train", shuffle=True)
-    loader.plan_epoch(0)  # reads every length once; not part of a batch's cost
-    t0 = time.perf_counter()
-    for batch in loader.epoch(0):
-        first.setdefault(int(batch["emo_x"].shape[1]), batch)
-    loader_ms = 1e3 * (time.perf_counter() - t0) / loader.batches_per_epoch(0)
     groups = (("attention_forward", "attention_fwd_"),
               ("attention_backward", "attention_bwd_"))
-    # the loader alone, nothing else running: its thread shares the
-    # interpreter with the step's launches while fit runs
-    out = {"loader_host_ms_per_batch": loader_ms}
-    for frames in (min(first), max(first)):
-        batch = first[frames]
+    out = {}
+    for frames, batch in batches.items():
         for _ in range(2):
             trainer.train_step(batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(timed):
             trainer.train_step(batch)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / 5
-        steps = 3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms = 1e3 * (time.perf_counter() - t0) / timed
+        steps = traced
+        activities = [ProfilerActivity.CUDA]
+        if host_ops:
+            activities.append(ProfilerActivity.CPU)
+        with profile(activities=activities) as prof:
             for _ in range(steps):
                 trainer.train_step(batch)
             torch.cuda.synchronize()
@@ -925,7 +954,7 @@ def train_profile_phase(cfg, dev):
                    if e.device_type == DeviceType.CUDA
                    and not e.key.startswith("Optimizer.")]
         step_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
-        reading = dict(rows=2 * len(batch["lengths"]), wall_ms_per_step=wall_ms,
+        reading = dict(rows=rows(batch), wall_ms_per_step=wall_ms,
                        device_ms_per_step=step_ms or None,
                        kernel_launches_per_step=sum(e.count for e in kernels) // steps)
         if step_ms:
@@ -945,12 +974,37 @@ def train_profile_phase(cfg, dev):
     return out
 
 
+def first_batch_by_bucket(loader):
+    """The first batch of each frame bucket in epoch 0, and the loader's
+    host ms per batch (read alone: its thread shares the interpreter with the
+    step's launches while fit runs)."""
+    loader.plan_epoch(0)  # reads every length once; not part of a batch's cost
+    first = {}
+    t0 = time.perf_counter()
+    for batch in loader.epoch(0):
+        frames = batch["mel" if "mel" in batch else "emo_x"].shape[1]
+        first.setdefault(int(frames), batch)
+    return first, 1e3 * (time.perf_counter() - t0) / loader.batches_per_epoch(0)
+
+
+def train_profile_phase(cfg, dev):
+    """The rank model's train step at the smallest and the largest frame
+    bucket (profile_steps), and the loader's host time per batch."""
+    from emotts_torch.train.rank_trainer import RankTrainer
+
+    trainer = RankTrainer(cfg, device=dev)
+    first, loader_ms = first_batch_by_bucket(trainer._loader("train", shuffle=True))
+    out = {"loader_host_ms_per_batch": loader_ms}
+    out.update(profile_steps(trainer, {f: first[f] for f in (min(first), max(first))},
+                             lambda b: 2 * len(b["lengths"])))
+    return out
+
+
 def train_parity_phase(root, dev):
     """One fp32 train step at full width: loss and every parameter's gradient
     through the kernels against the same step with the plain forward and
     backward put in their place (same weights, batch, λ, dropout masks)."""
     from emotts_torch.losses.rank import rank_loss
-    from emotts_torch.ops import attention as A
     from emotts_torch.train.rank_trainer import RankTrainer, batch_to_device
 
     cfg = rank_config(root, "float32")
@@ -973,6 +1027,44 @@ def train_parity_phase(root, dev):
         return loss.item(), {n: p.grad.clone()
                              for n, p in trainer.model.named_parameters()}
 
+    return _kernels_against_plain(step, dict(
+        frames=int(b["emo_x"].shape[1]), rows=int(2 * b["emo_x"].shape[0])))
+
+
+def _worst_gradient(grads, ref):
+    """The largest difference of a parameter's gradient from ``ref``'s, as a
+    share of ref's largest entry for that parameter but of no less than a
+    thousandth of the model's largest: the key biases have no gradient at
+    all (a softmax row does not see a constant added to every key), nor
+    have FastSpeech2's PostNet conv biases (BatchNorm on batch statistics
+    removes a constant), so theirs is rounding noise on both sides."""
+    largest = max(g.abs().max().item() for g in ref.values())
+    worst, worst_name = 0.0, None
+    for name, g in grads.items():
+        if not torch.isfinite(g).all() or largest == 0.0:
+            raise AssertionError(f"gradient of {name} is not finite, or all are zero")
+        scale = max(ref[name].abs().max().item(), 1e-3 * largest)
+        ratio = (g - ref[name]).abs().max().item() / scale
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
+def _kernels_against_plain(step, info, relu_gates=False):
+    """Run ``step`` (→ loss, {name: gradient}) through the kernels, then with
+    the plain forward and backward put in their place, and hold the two to
+    the fp32 tolerances below (both sides fp32, other summation orders).
+
+    ``relu_gates``: the model gates with ReLUs (FastSpeech2's convolutions),
+    so a forward that differs at the rounding level can flip a gate at a
+    value near zero and move a gradient sum by one or more of its terms:
+    how far depends on how many gates sit that close to zero (2.3e-3 to
+    3.3e-2 of the largest entry in four runs on the card), not on the
+    kernels.  Its gradients are then held at 1e-3 to a third step, the plain
+    backward behind the kernels' own forward (the same gates); the
+    all-plain step's are reported, and its loss held at 1e-5."""
+    from emotts_torch.ops import attention as A
+
     before = A.launch_count, A.bwd_launch_count
     loss_k, grads_k = step()
     if (A.launch_count, A.bwd_launch_count) == before:
@@ -984,38 +1076,414 @@ def train_parity_phase(root, dev):
     def plain_backward(q, k, v, bias, seeds, stats, dout, rate=0.0):
         return A.fused_attention_bwd_plain(q, k, v, bias, dout, seeds, rate)
 
-    kernels = A.attention_forward, A.attention_backward
-    A.attention_forward, A.attention_backward = plain_forward, plain_backward
-    try:
-        before = A.launch_count, A.bwd_launch_count
-        loss_p, grads_p = step()
-        if (A.launch_count, A.bwd_launch_count) != before:
-            raise AssertionError("the plain step launched a kernel")
-    finally:
-        A.attention_forward, A.attention_backward = kernels
-    # fp32 on both sides; the two differ in summation order through 6 blocks
-    # A parameter's gradient is held to a share of its largest entry, but of
-    # no less than a thousandth of the model's largest: the key biases have
-    # no gradient at all (a softmax row does not see a constant added to
-    # every key), so theirs is rounding noise on both sides.
+    def plain_step(forward, backward):
+        kernels = A.attention_forward, A.attention_backward
+        A.attention_forward, A.attention_backward = forward, backward
+        try:
+            return step()
+        finally:
+            A.attention_forward, A.attention_backward = kernels
+
+    before = A.launch_count, A.bwd_launch_count
+    loss_p, grads_p = plain_step(plain_forward, plain_backward)
+    if (A.launch_count, A.bwd_launch_count) != before:
+        raise AssertionError("the plain step launched a kernel")
     loss_rtol, grad_rtol = 1e-5, 1e-3
-    largest = max(g.abs().max().item() for g in grads_p.values())
-    worst, worst_name = 0.0, None
-    for name, g in grads_k.items():
-        scale = max(grads_p[name].abs().max().item(), 1e-3 * largest)
-        if not torch.isfinite(g).all() or largest == 0.0:
-            raise AssertionError(f"gradient of {name} is not finite, or all are zero")
-        ratio = (g - grads_p[name]).abs().max().item() / scale
-        if ratio > worst:
-            worst, worst_name = ratio, name
+    worst_all, worst_all_name = _worst_gradient(grads_k, grads_p)
+    out = dict(**info, loss_kernels=loss_k, loss_plain=loss_p, loss_rtol=loss_rtol,
+               parameters=len(grads_k), worst_gradient_difference=worst_all,
+               worst_at=worst_all_name, gradient_rtol_of_largest_entry=grad_rtol)
+    worst, worst_name = worst_all, worst_all_name
+    if relu_gates:
+        _, grads_b = plain_step(A.attention_forward, plain_backward)
+        worst, worst_name = _worst_gradient(grads_k, grads_b)
+        out.update(worst_gradient_difference_same_forward=worst,
+                   worst_same_forward_at=worst_name)
     if abs(loss_k - loss_p) > loss_rtol * abs(loss_p) or worst > grad_rtol:
         raise AssertionError(
             f"kernel step loss {loss_k} vs plain {loss_p}; worst gradient "
             f"difference {worst} of its largest entry at {worst_name}")
-    return dict(frames=int(b["emo_x"].shape[1]), rows=int(2 * b["emo_x"].shape[0]),
-                loss_kernels=loss_k, loss_plain=loss_p, loss_rtol=loss_rtol,
-                parameters=len(grads_k), worst_gradient_difference=worst,
-                worst_at=worst_name, gradient_rtol_of_largest_entry=grad_rtol)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phases 12-14: FastSpeech2 training, then streamed serving from the
+# experiment directories
+# --------------------------------------------------------------------------
+
+FS2_STEPS = 30  # about three epochs over the corpus' FS2 split
+
+
+def fs2_config(root, compute_dtype="bfloat16"):
+    """Config() defaults — FS2 6+6 layers, d_model 384, 2 heads of 192, FFN
+    1536 with kernels (9, 1), dropout 0.1, variance/PostNet dropout 0.5,
+    batch 8 — over the seeded corpus, with the fused attention kernels and
+    the default learning rate 1e-4.  Cut: FS2_STEPS steps."""
+    cfg = rank_config(root, compute_dtype)
+    cfg.fastspeech2.fused_attention = True
+    t = cfg.train_fs2
+    t.compute_dtype = compute_dtype
+    t.n_epochs = 10
+    t.max_iterations = FS2_STEPS
+    return cfg
+
+
+def fs2_trainer(cfg, rank_exp, dev):
+    """An FS2Trainer conditioned on the rank experiment's best/ extractor.
+    The duration predictor starts at about four frames a phone (output bias
+    log1p(4), output weights scaled by 0.3), as the seeded serving weights
+    do, so that the trained model makes audio to stream: a choice of
+    starting weights."""
+    from emotts_torch.train.checkpoint import load_best_params
+    from emotts_torch.train.fs2_trainer import FS2Trainer, extractor_params_from_rank
+
+    trainer = FS2Trainer(
+        cfg, extractor_params_from_rank(load_best_params(rank_exp)), device=dev)
+    with torch.no_grad():
+        trainer.model.duration_predictor.out.bias.fill_(math.log1p(4.0))
+        trainer.model.duration_predictor.out.weight.mul_(0.3)
+    return trainer
+
+
+def fs2_train_phase(cfg, rank_exp, dev):
+    """FS2Trainer.fit on the card; checkpoints, best/, then restore + one
+    step against the step the uninterrupted run takes; the attention
+    launches of one step; where a step's time goes at the smallest and the
+    largest frame bucket."""
+    from emotts_torch.ops import attention as A
+
+    trainer = fs2_trainer(cfg, rank_exp, dev)
+    losses, step_ms, buckets = [], [], []
+    step = trainer.train_step
+
+    def recorded_step(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(metrics["total_loss"])
+        buckets.append(int(batch["mel"].shape[1]))
+        return metrics
+
+    trainer.train_step = recorded_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exp = trainer.fit(verbose=False)
+    fit_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
+    trainer.train_step = step
+
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"FS2 training losses are not all finite: {losses}")
+    if len(set(buckets)) < 3:
+        raise AssertionError(f"the batches cover the buckets {sorted(set(buckets))} only")
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not tail < head:
+        raise AssertionError(f"the FS2 loss did not fall: mean of the first five "
+                             f"{head}, of the last five {tail}")
+    series = read_metrics(exp)
+    for tag in ("Loss/total_loss", "Valid/Loss/total_loss", "Valid/Loss/ssim_loss"):
+        if tag not in series or not np.isfinite(series[tag]).all():
+            raise AssertionError(f"metrics.jsonl lacks a finite {tag}")
+    checkpoints = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    if not checkpoints or not os.path.isfile(os.path.join(exp, "best", "params.pt")):
+        raise AssertionError("fit left no checkpoint or no best/ export")
+
+    # one step's attention launches, then resume
+    batch = next(iter(trainer._loader("train", shuffle=True).epoch(0)))
+    saved = copy.deepcopy(trainer.state.state_dict())  # what the checkpoint holds
+    before = A.launch_count, A.bwd_launch_count
+    want = trainer.train_step(batch)
+    per_step = dict(fused_attention=A.launch_count - before[0],
+                    fused_attention_bwd=A.bwd_launch_count - before[1])
+    f2, rm = cfg.fastspeech2, cfg.rank_model
+    fs2_layers = f2.enc_num_layers + f2.dec_num_layers
+    per_step_expected = dict(
+        fused_attention=fs2_layers + rm.n_encoder_layers,
+        fused_attention_bwd=fs2_layers * A.BWD_LAUNCHES_PER_CALL)
+    if per_step != per_step_expected:
+        raise AssertionError(f"attention launches of one FS2 step {per_step}, "
+                             f"expected {per_step_expected}")
+    fresh = fs2_trainer(cfg, rank_exp, dev)
+    if not fresh.restore(exp) or fresh.state.step != trainer.state.step - 1:
+        raise AssertionError("restore found no checkpoint of the last step")
+    if not same_bits(fresh.state.state_dict(), saved):
+        raise AssertionError("the restored FS2 state (parameters, BatchNorm statistics, "
+                             "moments, generator) is not the saved one")
+    got = fresh.train_step(batch)
+    if got != want:
+        raise AssertionError(f"resumed FS2 step {got} differs from the uninterrupted {want}")
+    # the library's convolution and gather backward sum in no fixed order, and
+    # Adam turns a last-bit difference of a gradient near zero into a step of
+    # up to lr: after the step the two states agree within 2 lr
+    drift = max((a - b).abs().max().item() for a, b in zip(
+        fresh.model.state_dict().values(), trainer.model.state_dict().values()))
+    if drift > 2 * cfg.train_fs2.learning_rate:
+        raise AssertionError(f"FS2 state after the resumed step differs by {drift}")
+    by_bucket = {str(t): float(np.mean([m for m, b in zip(step_ms[1:], buckets[1:])
+                                        if b == t]))
+                 for t in sorted(set(buckets[1:]))}
+    resume_s = time.perf_counter() - t0 - fit_s
+    first, loader_ms = first_batch_by_bucket(trainer._loader("train", shuffle=True))
+    # the kernels only (a step's 4000 host operators slow the trace's reading)
+    profile = profile_steps(trainer, {f: first[f] for f in sorted(first)},
+                            lambda b: len(b["mel_len"]), timed=3, traced=2,
+                            host_ops=False)
+    profile["loader_host_ms_per_batch"] = loader_ms
+    profile["seconds"] = time.perf_counter() - t0 - fit_s - resume_s
+    return exp, dict(
+        cuts=dict(steps=cfg.train_fs2.max_iterations,
+                  learning_rate=cfg.train_fs2.learning_rate,
+                  duration_bias=math.log1p(4.0), duration_weight_scale=0.3,
+                  note="full width and depth; the learning rate is the "
+                       "configured default, not raised"),
+        steps=len(losses), learning_rate=cfg.train_fs2.learning_rate,
+        mean_first_five=head, mean_last_five=tail, losses=losses,
+        fit_seconds=fit_s, resume_seconds=resume_s, step_ms_mean_after_first=float(np.mean(step_ms[1:])),
+        step_ms_by_frame_bucket=by_bucket, first_step_ms=step_ms[0],
+        peak_memory_bytes=int(peak_bytes),
+        valid={k.split("/")[-1]: v for k, v in series.items()
+               if k.startswith("Valid/")},
+        checkpoints=checkpoints, restored_state_equal_bits=True,
+        resumed_step_equal_bits=True, state_drift_after_resumed_step=drift, attention_launches_per_step=per_step,
+        profile=profile,
+    )
+
+
+def fs2_parity_phase(root, rank_exp, dev):
+    """One fp32 FS2 train step at full width: loss and every parameter's
+    gradient through the kernels (FS2 and the frozen extractor) against the
+    same step with the plain forward and backward put in their place (same
+    weights, batch, dropout draws and BatchNorm statistics)."""
+    from emotts_torch.losses.fs2 import fs2_loss
+    from emotts_torch.ops import attention as A
+    from emotts_torch.train.fs2_trainer import batch_to_device
+
+    cfg = fs2_config(root, "float32")
+    trainer = fs2_trainer(cfg, rank_exp, dev)
+    batch = next(iter(trainer._loader("train", shuffle=True).epoch(0)))
+    b = batch_to_device(batch, dev)
+    gen = trainer.state.generators["dropout"]
+    start = gen.get_state()
+    buffers = {n: t.clone() for n, t in trainer.model.named_buffers()}
+
+    def step():
+        gen.set_state(start)
+        for n, t in trainer.model.named_buffers():
+            t.copy_(buffers[n])
+        trainer.model.zero_grad(set_to_none=True)
+        preds = trainer._forward(b, deterministic=False)
+        loss, _ = fs2_loss(preds, b["mel"], b["durations"], b["mel_len"],
+                           b["phon_len"], cfg.loss)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in trainer.model.named_parameters()}
+
+    return _kernels_against_plain(step, dict(
+        frames=int(b["mel"].shape[1]), phones=int(b["phonemes"].shape[1]),
+        rows=int(b["mel"].shape[0])), relu_gates=True)
+
+
+def vocoder_npz(voc_sd, path):
+    """A generator state_dict as the flat .npz (keys a/b/c of the reference's
+    params tree) that ``load_vocoder_checkpoint`` reads: the inverse of
+    ``hifigan_from_flax``."""
+    flat = {k: v.numpy() for k, v in voc_sd.items() if k.startswith("conv_")}
+    n_ups = len([k for k in voc_sd if k.startswith("up_kernels.")])
+    n_k = len({k.split(".")[1] for k in voc_sd if k.startswith("resblocks.")}) // n_ups
+    for i in range(n_ups):
+        flat[f"up_{i}_kernel"] = voc_sd[f"up_kernels.{i}"].numpy()
+        flat[f"up_{i}_bias"] = voc_sd[f"up_biases.{i}"].numpy()
+        for j in range(n_k):
+            base = f"resblocks.{i * n_k + j}"
+            for conv, w, bias in (("convs1", "w1", "b1"), ("convs2", "w2", "b2")):
+                for d, (wd, bd) in enumerate(zip(voc_sd[f"{base}.{w}"],
+                                                 voc_sd[f"{base}.{bias}"])):
+                    flat[f"resblock_{i}_{j}/{conv}_{d}_kernel"] = wd.numpy()
+                    flat[f"resblock_{i}_{j}/{conv}_{d}_bias"] = bd.numpy()
+    np.savez(path, **flat)
+
+
+STREAM_CHUNK = 32  # mel frames a chunk: 512 ms of audio
+
+
+def vocoder_launches(gen):
+    """(MRF, ResBlock) CUDA launches of one forward of ``gen``, from its
+    structure: a stage the MRF kernel takes launches its plan, the others
+    launch each ResBlock's plan."""
+    from emotts_torch.ops import mrf, resblock
+
+    ch = gen.conv_pre_kernel.shape[2]
+    per_mrf = per_resblock = 0
+    for _ in gen.upsample_rates:
+        ch //= 2
+        if gen._stage_is_fused(ch):
+            per_mrf += len(mrf.launch_plan(ch, gen.resblock_kernel_sizes,
+                                           gen.resblock_dilations[0]))
+        elif gen.use_pallas_resblocks:
+            per_resblock += sum(len(resblock.launch_plan(ch, k, d)) for k, d in zip(
+                gen.resblock_kernel_sizes, gen.resblock_dilations))
+    return per_mrf, per_resblock
+
+
+def stream_phase(root, fs2_exp, rank_exp, voc_sd, dev):
+    """load_synthesizer from the two experiment directories and a seeded
+    .npz vocoder, then: a streamed POST /synthesize over HTTP; chunked
+    against unchunked vocoding of one content-trimmed mel; warm
+    time-to-first-audio and total (median of 10 after one warm-up, as
+    bench.py's bench_ttfa); the launches of one stream."""
+    from emotts_torch.infer.server import make_server
+    from emotts_torch.infer.streaming import (generator_halo_frames, stream_text,
+                                              vocode_streaming)
+    from emotts_torch.infer.synthesize import load_synthesizer
+    from emotts_torch.ops import attention, mrf, resblock
+
+    cfg = full_width_config()
+    npz = os.path.join(root, "vocoder.npz")
+    vocoder_npz(voc_sd, npz)
+    cfg.inference.vocoder_checkpoint = npz
+    synth = load_synthesizer(cfg, fs2_exp, rank_exp, device=dev)
+    if not (synth.vocoder.fused_mrf and synth.vocoder.use_pallas_resblocks
+            and synth.intensity_bank is not None):
+        raise AssertionError("load_synthesizer did not load the kernels' "
+                             "generator and the bank")
+    text, hop = cfg.inference.text, cfg.audio.hop_length
+    halo = generator_halo_frames(synth.vocoder)
+
+    # chunked against unchunked vocoding of the same content-trimmed mel
+    ids = synth.text_to_phoneme_ids(text)
+    inten = synth.intensity_for(1, 2, 1, len(ids))[None]
+    mel, lens = synth.synthesize_mels(ids, np.array([1], np.int32), inten)
+    n = int(lens[0])
+    whole = synth.vocode(mel[:, :n])[0].cpu().numpy().astype(np.int64)
+    chunked = np.concatenate(list(vocode_streaming(
+        synth._vocode, mel[:, :n], hop, STREAM_CHUNK, halo)), axis=1)[0].astype(np.int64)
+    if whole.shape != chunked.shape or n < 2 * STREAM_CHUNK:
+        raise AssertionError(f"{n} frames: chunked {chunked.shape}, whole {whole.shape}")
+    steps = int(np.abs(whole - chunked).max())
+    if steps > 8:
+        raise AssertionError(f"streamed PCM differs from unchunked by {steps} steps")
+    if np.abs(whole).max() < 100:
+        raise AssertionError("the streamed sentence is silent")
+
+    def run_once():
+        t0 = time.perf_counter()
+        gen = stream_text(synth, text, 1, 2, level=1, chunk_frames=STREAM_CHUNK)
+        first = next(gen)
+        ttfa = time.perf_counter() - t0
+        samples = first.size + sum(piece.size for piece in gen)
+        return ttfa, time.perf_counter() - t0, samples
+
+    run_once()  # warm: allocator, cuDNN choices for every window shape
+    attention.launch_count = mrf.launch_count = resblock.launch_count = 0
+    counter = ForwardCounter(synth)
+    runs = [run_once() for _ in range(10)]
+    counter.close()
+    per_stream = dict(fused_attention=attention.launch_count / 10,
+                      fused_mrf_stage=mrf.launch_count / 10,
+                      fused_resblock1=resblock.launch_count / 10,
+                      fs2_forwards=counter.fs2 / 10,
+                      generator_forwards=counter.vocoder / 10)
+    if min(per_stream.values()) == 0:
+        raise AssertionError(f"a stream launched no kernel of a kind: {per_stream}")
+    ttfas = sorted(r[0] for r in runs)
+    totals = sorted(r[1] for r in runs)
+
+    # the HTTP path, counted with the serving counters' rule
+    attention.launch_count = mrf.launch_count = resblock.launch_count = 0
+    counter = ForwardCounter(synth)
+    httpd = make_server(cfg, synth, port=0, device=dev.type)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/synthesize",
+            data=json.dumps({"text": "The ship was quiet. Then the lights came on.",
+                             "speaker": "jenie", "emotion": "angry", "level": 2,
+                             "stream": True}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            kind, rate = r.headers["Content-Type"], r.headers["X-Sample-Rate"]
+            body = r.read()
+        http_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    counter.close()
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+    if kind != "audio/L16" or rate != str(cfg.audio.sampling_rate):
+        raise AssertionError(f"streamed response {kind}, rate {rate}")
+    seconds = check_audio(np.frombuffer(body, "<i2"), cfg, 2, "streamed /synthesize")
+    launches = dict(fused_attention=attention.launch_count,
+                    fused_mrf_stage=mrf.launch_count,
+                    fused_resblock1=resblock.launch_count)
+    per_mrf, per_resblock = vocoder_launches(synth.vocoder)
+    expected = dict(
+        fused_attention=(cfg.fastspeech2.enc_num_layers
+                         + cfg.fastspeech2.dec_num_layers) * counter.fs2,
+        fused_mrf_stage=per_mrf * counter.vocoder,
+        fused_resblock1=per_resblock * counter.vocoder)
+    if launches != expected or min(launches.values()) == 0:
+        raise AssertionError(f"streamed request's launches {launches}, "
+                             f"expected {expected}")
+    return launches, dict(
+        frames=n, chunk_frames=STREAM_CHUNK, halo_frames=halo,
+        max_pcm_steps_streamed_vs_whole=steps, streamed_equals_whole=steps == 0,
+        limit_pcm_steps=8, ttfa_ms_median=1e3 * ttfas[5],
+        ttfa_ms_runs=[1e3 * t for t in ttfas],
+        total_ms_median=1e3 * totals[5],
+        audio_s=runs[0][2] / cfg.audio.sampling_rate,
+        launches_per_stream=per_stream, http=dict(
+            latency_ms=http_ms, audio_s=seconds, launches=launches,
+            fs2_forwards=counter.fs2, generator_forwards=counter.vocoder))
+
+
+def fs2_phases(root, rank_exp, voc_sd, dev):
+    """Phases 12-14 on the corpus under ``root`` and the rank experiment
+    ``rank_exp``: FS2 training (its attention launches counted against the
+    forwards that make them), the FS2 train parity, and the streamed path
+    (counted likewise).  Returns the two paths' launch counts."""
+    from emotts_torch.nn.fastspeech2 import FastSpeech2
+    from emotts_torch.nn.intensity import IntensityExtractor
+    from emotts_torch.ops import attention
+
+    t0 = time.perf_counter()
+    fs2_cfg = fs2_config(root)
+    attention.launch_count = attention.bwd_launch_count = 0
+    extractor, fs2_forwards = ModuleCounter(IntensityExtractor), ModuleCounter(FastSpeech2)
+    fs2_exp, fs2_trained = fs2_train_phase(fs2_cfg, rank_exp, dev)
+    extractor.close()
+    fs2_forwards.close()
+    fs2_launches = dict(fused_attention=attention.launch_count,
+                        fused_attention_bwd=attention.bwd_launch_count)
+    f2 = fs2_cfg.fastspeech2
+    fs2_layers = f2.enc_num_layers + f2.dec_num_layers
+    fs2_expected = dict(
+        fused_attention=fs2_layers * fs2_forwards.forwards
+        + fs2_cfg.rank_model.n_encoder_layers * extractor.forwards,
+        fused_attention_bwd=fs2_layers * attention.BWD_LAUNCHES_PER_CALL
+        * fs2_forwards.training_forwards)
+    if fs2_launches != fs2_expected or min(fs2_launches.values()) == 0:
+        raise AssertionError(f"launch counters {fs2_launches}, expected {fs2_expected}")
+    emit("fs2_train", seconds=time.perf_counter() - t0, **fs2_trained,
+         launches=dict(counted=fs2_launches, expected=fs2_expected,
+                       fs2_forwards=fs2_forwards.forwards,
+                       fs2_train_steps=fs2_forwards.training_forwards,
+                       extractor_forwards=extractor.forwards))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    parity = fs2_parity_phase(root, rank_exp, dev)
+    emit("fs2_train_parity", seconds=time.perf_counter() - t0, **parity)
+
+    t0 = time.perf_counter()
+    stream_launches, streamed = stream_phase(root, fs2_exp, rank_exp, voc_sd, dev)
+    emit("stream", seconds=time.perf_counter() - t0, **streamed)
+    return fs2_launches, stream_launches
 
 
 def main():
@@ -1032,6 +1500,7 @@ def main():
          cuda=torch.version.cuda)
 
     from emotts_torch.infer.synthesize import Synthesizer
+    from emotts_torch.nn.intensity import IntensityExtractor
     from emotts_torch.ops import _build, attention, mrf, resblock
 
     # -- 2. build ----------------------------------------------------------
@@ -1078,20 +1547,15 @@ def main():
                     fused_resblock1=resblock.launch_count)
     counter.close()
 
-    f2, v = cfg.fastspeech2, cfg.train_vocoder
-    per_vocode_resblock = sum(
-        len(resblock.launch_plan(256, k, d)) for k, d in zip(
-            v.resblock_kernel_sizes, v.resblock_dilations))
-    # the stages with C = 128, 64, 32; C = 128 takes one launch per dilation
-    # step of each ResBlock
-    per_vocode_mrf = sum(
-        len(mrf.launch_plan(c, v.resblock_kernel_sizes, v.resblock_dilations[0]))
-        for c in (128, 64, 32))
+    f2 = cfg.fastspeech2
+    # V1: the MRF kernel takes the stages with C = 128, 64, 32 (C = 128 one
+    # launch per dilation step of each ResBlock); the C = 256 stage one
+    # ResBlock wrapper call per kernel size, k = 7 and 11 one CUDA launch per
+    # dilation step
+    per_vocode_mrf, per_vocode_resblock = vocoder_launches(synth.vocoder)
     expected = dict(
         fused_attention=(f2.enc_num_layers + f2.dec_num_layers) * counter.fs2,
         fused_mrf_stage=per_vocode_mrf * counter.vocoder,
-        # the C = 256 stage: one ResBlock wrapper call per kernel size; k = 7
-        # and k = 11 take one CUDA launch per dilation step there
         fused_resblock1=per_vocode_resblock * counter.vocoder,
     )
     emit("launches", counted=launches, expected=expected,
@@ -1112,7 +1576,7 @@ def main():
         emit("corpus", seed=SEED, **make_rank_corpus(
             rank_cfg.data.preprocessed_path, rank_cfg, SEED))
         attention.launch_count = attention.bwd_launch_count = 0
-        extractor = ExtractorCounter()
+        extractor = ModuleCounter(IntensityExtractor)
         exp, trained = train_phase(rank_cfg, dev)
         emit("train", **trained)
         bank, bucketized = bucketize_phase(rank_cfg, exp, dev)
@@ -1140,11 +1604,17 @@ def main():
         # -- 11. train parity ---------------------------------------------------
         emit("train_parity", **train_parity_phase(root, dev))
 
+        # -- 12-14. FastSpeech2 training, its parity, streamed serving ---------
+        fs2_launches, stream_launches = fs2_phases(root, exp, weights[1], dev)
+
     # -- summary ---------------------------------------------------------------
-    # a kernel's launches over both counted paths
+    # a kernel's launches over the counted paths
     serve_launches = dict(launches)
-    launches["fused_attention_bwd"] = train_launches["fused_attention_bwd"]
-    launches["fused_attention"] += train_launches["fused_attention"]
+    by_path = dict(serving=serve_launches, training=train_launches,
+                   fs2_training=fs2_launches, streaming=stream_launches)
+    launches = {name: sum(path.get(name, 0) for path in by_path.values())
+                for name in ("fused_attention", "fused_attention_bwd",
+                             "fused_mrf_stage", "fused_resblock1")}
     headline = {  # the case that carries most of the serving path's time
         "fused_attention": lambda c: c["dtype"] == "bfloat16" and c["shape"][1] == 1024,
         # the largest bucket of a training step at batch 8 (16 rows), with dropout
@@ -1167,8 +1637,8 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],
-            launches_by_path=dict(serving=serve_launches.get(name, 0),
-                                  training=train_launches.get(name, 0)),
+            launches_by_path={path: counts.get(name, 0)
+                              for path, counts in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cases[name]
                             + (dropout_cases if name == "fused_attention" else [])),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],

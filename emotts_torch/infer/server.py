@@ -7,9 +7,10 @@ endpoints over the existing engines:
 * ``GET /health`` — liveness + the model's speaker/emotion tables.
 * ``POST /synthesize`` — one long-form request → a complete ``audio/wav``
   body (``Synthesizer.synthesize_text``: sentence-split, bucket-batched,
-  O(#buckets) device forwards).  ``"stream": true`` is answered with
-  ``501`` and a message: chunked streaming is not ported yet, and a silent
-  non-streamed body would break a client that asked for chunks.
+  O(#buckets) device forwards).  With ``"stream": true`` the answer is a
+  chunked ``audio/L16`` body (16-bit little-endian mono PCM, rate in
+  ``X-Sample-Rate``) whose chunks leave as they are vocoded
+  (``emotts_torch.infer.streaming.stream_text``).
 * ``POST /batch`` — many requests in one body; all sentences across all
   requests that share a phone bucket run as ONE forward
   (``Synthesizer.synthesize_requests``), so device work is O(#distinct
@@ -40,6 +41,10 @@ import numpy as np
 import torch
 
 
+def _pcm16(y: np.ndarray) -> bytes:
+    return (np.clip(y, -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
+
+
 def _wav_bytes(y: np.ndarray, sr: int) -> bytes:
     """float32 [-1, 1] → 16-bit PCM WAV container bytes."""
     pcm = (np.clip(y, -1.0, 1.0) * 32767.0).astype("<i2")
@@ -54,10 +59,6 @@ def _wav_bytes(y: np.ndarray, sr: int) -> bytes:
 
 class TTSRequestError(ValueError):
     pass
-
-
-class StreamingNotPorted(NotImplementedError):
-    """A request asked for the chunked streaming response."""
 
 
 class _MicroBatcher:
@@ -262,6 +263,32 @@ class TTSService:
                 emotion_mix=r.get("emotion_mix"),
             )
 
+    def stream(self, req: dict):
+        """A generator of float32 chunks for ``req``.  All validation happens
+        here, eagerly: once the handler has started a chunked 200 response,
+        an error inside the generator can no longer become a 400."""
+        from emotts_torch.infer.streaming import stream_text
+
+        self._need_vocoder()
+        r = self.parse(req)
+        if "speaker_mix" in r or "emotion_mix" in r or r.get("ssml"):
+            raise TTSRequestError(
+                "speaker_mix/emotion_mix/ssml are not supported on the "
+                "streaming path yet"
+            )
+
+        def gen():
+            with self.lock:
+                # yield under the lock: chunks come straight off the device
+                yield from stream_text(
+                    self.synth, r["text"], r["speaker"], r["emotion"],
+                    level=r["level"], intensity_scale=r["scale"],
+                    pace=r["pace"], pitch_rate=r["pitch_rate"],
+                    energy_rate=r["energy_rate"],
+                )
+
+        return gen()
+
     def batch(self, reqs) -> list:
         self._need_vocoder()
         if not isinstance(reqs, list) or not reqs:
@@ -332,18 +359,26 @@ class _Handler(BaseHTTPRequestHandler):
             if self.path == "/synthesize":
                 req = self._read_json()
                 if req.get("stream"):
-                    raise StreamingNotPorted(
-                        "'stream': true is not supported by this server "
-                        "yet: chunked streaming synthesis has not been "
-                        "ported; send the request without 'stream' for a "
-                        "complete audio/wav body"
-                    )
-                wav = _wav_bytes(svc.synthesize(req), sr)
-                self.send_response(200)
-                self.send_header("Content-Type", "audio/wav")
-                self.send_header("Content-Length", str(len(wav)))
-                self.end_headers()
-                self.wfile.write(wav)
+                    # svc.stream validates before the chunked 200 starts,
+                    # while a 400 can still be sent
+                    chunks = svc.stream(req)
+                    self.send_response(200)
+                    self.send_header("Content-Type", "audio/L16")
+                    self.send_header("X-Sample-Rate", str(sr))
+                    self.send_header("Transfer-Encoding", "chunked")
+                    self.end_headers()
+                    for chunk in chunks:
+                        data = _pcm16(chunk)
+                        self.wfile.write(f"{len(data):x}\r\n".encode())
+                        self.wfile.write(data + b"\r\n")
+                    self.wfile.write(b"0\r\n\r\n")
+                else:
+                    wav = _wav_bytes(svc.synthesize(req), sr)
+                    self.send_response(200)
+                    self.send_header("Content-Type", "audio/wav")
+                    self.send_header("Content-Length", str(len(wav)))
+                    self.end_headers()
+                    self.wfile.write(wav)
             elif self.path == "/batch":
                 body = self._read_json()
                 wavs = svc.batch(body.get("requests"))
@@ -356,8 +391,6 @@ class _Handler(BaseHTTPRequestHandler):
                 })
             else:
                 self._json(404, {"error": f"no route {self.path}"})
-        except StreamingNotPorted as e:
-            self._json(501, {"error": str(e)})
         except TTSRequestError as e:
             self._json(400, {"error": str(e)})
         except Exception as e:  # engine errors surface as 500, not a hang

@@ -9,17 +9,17 @@ transfer of the 16-bit waveform batch to the host.
 ``Synthesizer`` runs on the card unless the caller asks for the CPU.  With
 ``fastspeech2.fused_attention=True`` and a ``vocoder_structure`` that sets
 ``fused_mrf`` / ``use_pallas_resblocks`` the forward goes through the
-package's hand-written kernels (``emotts_torch.ops``).
+package's hand-written kernels (``emotts_torch.ops``).  ``load_synthesizer``
+assembles one from the package's own experiment directories.
 
-Not ported yet: the ``mesh`` argument (sharded synthesis) and
-``synthesize_first_chunk`` (streaming).
+Not ported yet: the ``mesh`` argument (sharded synthesis).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import itertools
 import os
+import sys
 from pathlib import Path
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -29,16 +29,15 @@ import torch.nn.functional as F
 
 from emotts_torch.audio.wavio import write_wav
 from emotts_torch.data.datasets import pick_bucket
-from emotts_torch.nn.convert import fs2_from_flax, hifigan_from_flax
-from emotts_torch.nn.fastspeech2 import FastSpeech2
+from emotts_torch.nn.convert import (fs2_from_flax, hifigan_from_flax,
+                                     load_vocoder_checkpoint)
 from emotts_torch.nn.hifigan import (HiFiGANGenerator,
                                      generator_structure_from_params)
 from emotts_torch.text.g2p import G2P
 from emotts_torch.text.segment import split_sentences
+from emotts_torch.train.checkpoint import load_best_params
+from emotts_torch.train.fs2_trainer import build_fastspeech2
 from emotts_torch.utils.config import Config
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
 
 
 def resolve_name(value, table, what: str) -> int:
@@ -62,20 +61,6 @@ def resolve_name(value, table, what: str) -> int:
     if not 0 <= idx < len(table):
         raise ValueError(f"{what} id {idx} out of range (n={len(table)})")
     return idx
-
-
-def build_fastspeech2(cfg: Config, dtype: Optional[torch.dtype] = None) -> FastSpeech2:
-    """The FastSpeech2 of ``cfg``: intensity width follows ``n_emotions``,
-    compute dtype follows ``train_fs2.compute_dtype``, and the fused-attention
-    flag's auto value (None) resolves to the unfused path, as it does in the
-    reference wherever no training batch size is given."""
-    cfg.fastspeech2.intensity_dim = cfg.n_emotions
-    if dtype is None:
-        dtype = _DTYPES[cfg.train_fs2.compute_dtype]
-    fs2_cfg = dataclasses.replace(
-        cfg.fastspeech2, fused_attention=bool(cfg.fastspeech2.fused_attention)
-    )
-    return FastSpeech2(fs2_cfg, n_speakers=cfg.n_speakers, dtype=dtype)
 
 
 def _is_flax_tree(weights: Mapping) -> bool:
@@ -157,6 +142,17 @@ class Synthesizer:
         )
         # element 0 is the mel BEFORE the PostNet, as in the reference
         return preds[0], preds[7]  # mel (B, T, n_mels), mel_lens (B,)
+
+    @torch.inference_mode()
+    def _first_chunk(self, phonemes, speakers, intensity, max_mel_len, pace,
+                     pitch_rate, energy_rate, window):
+        """FS2 forward, then the vocoder on the first ``window`` mel frames,
+        queued on the device with no host synchronisation between the two.
+        The returned mel/lens let the caller stream the remaining chunks
+        without running FastSpeech2 again."""
+        mel, lens = self._mel_forward(phonemes, speakers, intensity, max_mel_len,
+                                      pace, pitch_rate, energy_rate)
+        return self._vocode(mel[:, :window]), mel, lens
 
     @torch.inference_mode()
     def _vocode(self, mel):
@@ -266,6 +262,28 @@ class Synthesizer:
         inten = np.zeros((b, p_bucket, intensity.shape[-1]), np.float32)
         inten[:, : intensity.shape[1]] = intensity
         return self._to_device(phon), self._to_device(spk), self._to_device(inten)
+
+    def synthesize_first_chunk(
+        self,
+        phoneme_ids: np.ndarray,  # (P,)
+        speakers: np.ndarray,  # (B,)
+        intensity: np.ndarray,  # (B, P, n_emo)
+        window: int,  # mel frames vocoded right after the FS2 forward
+        pace: float = 1.0,
+        pitch_rate: float = 1.0,
+        energy_rate: float = 1.0,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(int16 PCM of mel[:, :window], mel, mel_lens) as device tensors.
+        The PCM is exact on rows whose content length ≥ window (true left
+        edge and a full right halo inside the window); shorter rows must be
+        vocoded again content-trimmed by the caller."""
+        if self.vocoder is None:
+            raise RuntimeError("no vocoder params loaded")
+        phon, spk, inten = self._bucket_pad(phoneme_ids, speakers, intensity)
+        return self._first_chunk(
+            phon, spk, inten, self.cfg.fastspeech2.max_mel_len,
+            pace, pitch_rate, energy_rate, window,
+        )
 
     def vocode(self, mel: torch.Tensor,
                row_frame_budget: Optional[int] = None) -> torch.Tensor:
@@ -614,3 +632,49 @@ class Synthesizer:
             pace=pace, pitch_rate=pitch_rate, energy_rate=energy_rate,
             gap_s=gap_s,
         )[0]
+
+
+def load_synthesizer(cfg: Config, fs2_exp: Optional[str] = None,
+                     rank_exp: Optional[str] = None,
+                     device: str = "cuda") -> Synthesizer:
+    """Assemble a Synthesizer from this package's experiment directories:
+    the FS2 experiment's ``best/`` export, the rank experiment's
+    ``intensity.npy`` (absent: neutral conditioning) and the ``.npz``
+    vocoder checkpoint of ``inference.vocoder_checkpoint`` (absent: mels
+    only).  The directories default to ``<experiment_path>/fastspeech2/
+    <inference.fs2_exp>`` and ``<experiment_path>/rank_model/
+    <inference.rank_exp>``.  On a CUDA device the loaded generator runs
+    through the vocoder kernels (``fused_mrf``, ``use_pallas_resblocks``)."""
+    fs2_exp = fs2_exp or os.path.join(
+        cfg.data.experiment_path, "fastspeech2", cfg.inference.fs2_exp)
+    rank_exp = rank_exp or os.path.join(
+        cfg.data.experiment_path, "rank_model", cfg.inference.rank_exp)
+    fs2_params = load_best_params(fs2_exp)
+    intensity_path = os.path.join(rank_exp, "intensity.npy")
+    bank = np.load(intensity_path) if os.path.exists(intensity_path) else None
+    vocoder = maybe_load_vocoder(cfg)
+    structure = None
+    if vocoder is not None and torch.device(device).type == "cuda":
+        structure = dict(
+            generator_structure_from_params(
+                vocoder, expected_upsample=cfg.audio.hop_length),
+            fused_mrf=True, use_pallas_resblocks=True)
+    return Synthesizer(cfg, fs2_params, vocoder, bank,
+                       vocoder_structure=structure, device=device)
+
+
+def maybe_load_vocoder(cfg: Config) -> Optional[dict]:
+    """Load ``cfg.inference.vocoder_checkpoint`` if configured, warning
+    (rather than silently degrading) when the configured path is missing.
+    Returns None when no vocoder is configured or found."""
+    ckpt = cfg.inference.vocoder_checkpoint
+    if not ckpt:
+        return None
+    if not os.path.exists(ckpt):
+        print(
+            f"[vocoder] WARNING: inference.vocoder_checkpoint={ckpt!r} does "
+            "not exist — continuing without a vocoder (mel-only outputs)",
+            file=sys.stderr,
+        )
+        return None
+    return load_vocoder_checkpoint(ckpt)

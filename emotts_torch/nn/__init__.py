@@ -29,6 +29,7 @@ from emotts_torch.nn.length_regulator import (
     average_over_durations,
     length_regulate,
     phone_index_map,
+    segment_mean,
 )
 
 __all__ = [
@@ -55,4 +56,5 @@ __all__ = [
     "average_over_durations",
     "length_regulate",
     "phone_index_map",
+    "segment_mean",
 ]

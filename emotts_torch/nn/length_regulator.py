@@ -1,6 +1,7 @@
 """Duration-driven length regulation — counterpart of
 ``emotts/nn/length_regulator.py``: batched gathers and cumulative sums over a
-fixed frame grid, no Python loops over phones or frames."""
+fixed frame grid, no Python loops over phones or frames.  ``segment_mean``
+is the train-time bridge from frame-level features to phones."""
 
 from __future__ import annotations
 
@@ -53,6 +54,27 @@ def average_over_durations(
     )  # (B, T+1)
     sums = torch.gather(csum, 1, ends) - torch.gather(csum, 1, starts)
     counts = (ends - starts).to(values.dtype)
+    return torch.where(
+        counts > 0, sums / torch.clamp(counts, min=1.0), torch.zeros_like(sums)
+    )
+
+
+def segment_mean(
+    frames: torch.Tensor,  # (B, T, D) frame-level features (pad frames 0)
+    durations: torch.Tensor,  # (B, P) int
+) -> torch.Tensor:
+    """Duration-windowed mean of frame features → (B, P, D); a phone with
+    no frames gets zeros.  Windows are clamped into [0, T]."""
+    b, t, d_feat = frames.shape
+    d = torch.clamp(durations, min=0).long()
+    ends = torch.clamp(torch.cumsum(d, dim=1), 0, t)
+    starts = torch.clamp(ends - d, 0, t)
+    csum = torch.cat(
+        [frames.new_zeros((b, 1, d_feat)), torch.cumsum(frames, dim=1)], dim=1
+    )  # (B, T+1, D)
+    sums = (torch.gather(csum, 1, ends[..., None].expand(-1, -1, d_feat))
+            - torch.gather(csum, 1, starts[..., None].expand(-1, -1, d_feat)))
+    counts = (ends - starts).to(frames.dtype)[..., None]
     return torch.where(
         counts > 0, sums / torch.clamp(counts, min=1.0), torch.zeros_like(sums)
     )

@@ -3,7 +3,9 @@
 Counterpart of ``emotts/train/state.py``.  The whole state checkpoints —
 parameters, optimizer moments, the step counter and the states of the random
 generators — so that training is exactly resumable: a resumed run continues
-the same random streams.
+the same random streams.  The reference's ``batch_stats`` (BatchNorm running
+statistics) are buffers of the model here, so they travel with its
+``state_dict`` into checkpoints and the ``best/`` export.
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ kernel itself is held against that plain version on the card by
 chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,7 +95,8 @@ def test_multi_head_self_attention_matches_flax(fused):
                for leaf, a in sorted(sub.items())}
         for name, sub in sorted(shapes.items())
     }
-    ref = jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(valid), True)
+    ref = jax.jit(lambda p, x, v: jm.apply(p, x, v, True))(  # one compilation
+        {"params": params}, jnp.asarray(x), jnp.asarray(valid))
 
     tm = MultiHeadSelfAttention(d_model, heads, fused=fused)
     # the converter recognises attention projections by their "attn" parent

@@ -50,11 +50,15 @@ def test_plain_backward_matches_pallas_interpret_vjp(dtype, t):
     q, k, v, bias, g = _inputs(t=t)
     jd = jnp.dtype(dtype)
     jq, jk, jv, jg = (jnp.asarray(a).astype(jd) for a in (q, k, v, g))
-    _, vjp = jax.vjp(
-        lambda q_, k_, v_: fa.fused_attention(
-            q_, k_, v_, jnp.asarray(bias), jnp.zeros((3,), jnp.int32), 0.0),
-        jq, jk, jv)
-    want = vjp(jg)
+    @jax.jit  # one compilation instead of one per primitive
+    def reference(q_, k_, v_, g_):
+        _, vjp = jax.vjp(
+            lambda a, b, c: fa.fused_attention(
+                a, b, c, jnp.asarray(bias), jnp.zeros((3,), jnp.int32), 0.0),
+            q_, k_, v_)
+        return vjp(g_)
+
+    want = reference(jq, jk, jv, jg)
     td = getattr(torch, dtype)
     tq, tk, tv, tg = (torch.from_numpy(a).to(td) for a in (q, k, v, g))
     got = ta.fused_attention_bwd_plain(tq, tk, tv, torch.from_numpy(bias), tg)

@@ -3,6 +3,7 @@ flax module on the CPU, in fp32, with weights made from a numpy seed and
 carried across by emotts_torch.nn.convert.  The JAX side reaches its fused
 attention kernel in Pallas interpret mode."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -81,9 +82,11 @@ def _compare(ref, got):
 def test_free_running_forward_matches_flax(rng, prenet, postnet, blend):
     jmodel, variables, tmodel = _models(prenet, postnet)
     tokens, spk, intensity = _batch(rng, blend)
-    ref = jmodel.apply(variables, jnp.asarray(tokens), jnp.asarray(spk),
-                       intensity=jnp.asarray(intensity), pace=1.3,
-                       pitch_rate=0.9, energy_rate=1.1, max_mel_len=64)
+    # jitted: one compilation instead of one per primitive
+    ref = jax.jit(lambda v, tok, s, i: jmodel.apply(
+        v, tok, s, intensity=i, pace=1.3, pitch_rate=0.9, energy_rate=1.1,
+        max_mel_len=64))(variables, jnp.asarray(tokens), jnp.asarray(spk),
+                         jnp.asarray(intensity))
     with torch.no_grad():
         got = tmodel(_as_torch(tokens), _as_torch(spk),
                      intensity=_as_torch(intensity), pace=1.3, pitch_rate=0.9,
@@ -104,10 +107,10 @@ def test_teacher_forced_forward_matches_flax(rng, prenet, postnet, fused):
     frame_valid = np.arange(t)[None, :] < durations.sum(axis=1)[:, None]
     pitch = (rng.standard_normal((3, t)) * frame_valid).astype(np.float32)
     energy = (rng.standard_normal((3, t)) * frame_valid).astype(np.float32)
-    ref = jmodel.apply(variables, jnp.asarray(tokens), jnp.asarray(spk),
-                       durations=jnp.asarray(durations), pitch=jnp.asarray(pitch),
-                       energy=jnp.asarray(energy), intensity=jnp.asarray(intensity),
-                       max_mel_len=t)
+    ref = jax.jit(lambda v, tok, s, d, p, e, i: jmodel.apply(
+        v, tok, s, durations=d, pitch=p, energy=e, intensity=i, max_mel_len=t))(
+        variables, *(jnp.asarray(a) for a in (tokens, spk, durations, pitch,
+                                              energy, intensity)))
     with torch.no_grad():
         got = tmodel(_as_torch(tokens), _as_torch(spk),
                      durations=_as_torch(durations), pitch=_as_torch(pitch),

@@ -4,6 +4,7 @@ weights made from a numpy seed and carried across by
 emotts_torch.nn.convert.  The JAX side runs its Pallas kernels in interpret
 mode (they select it themselves off the TPU)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +30,7 @@ TOL = dict(rtol=1e-4, atol=2e-5)
 def test_waveform_matches_flax(rng, flags):
     jgen, tree = vocoder_params(**flags)
     mel = rng.standard_normal((2, 11, SMALL_VOCODER["in_channels"])).astype(np.float32)
-    ref = np.asarray(jgen.apply(tree, jnp.asarray(mel)))
+    ref = np.asarray(jax.jit(jgen.apply)(tree, jnp.asarray(mel)))  # one compilation
     tgen = HiFiGANGenerator(**SMALL_VOCODER, **flags)
     tgen.load_state_dict(hifigan_from_flax(tree))
     with torch.no_grad():

@@ -36,7 +36,10 @@ def test_there_are_sources_to_check():
                    "emotts_torch/train/rank_trainer.py", "emotts_torch/train/state.py",
                    "emotts_torch/train/checkpoint.py", "emotts_torch/data/loader.py",
                    "emotts_torch/data/datasets.py", "emotts_torch/losses/rank.py",
-                   "emotts_torch/infer/bucketize.py", "emotts_torch/nn/intensity.py"):
+                   "emotts_torch/infer/bucketize.py", "emotts_torch/nn/intensity.py",
+                   "emotts_torch/losses/fs2.py", "emotts_torch/data/splits.py",
+                   "emotts_torch/train/fs2_trainer.py",
+                   "emotts_torch/infer/streaming.py"):
         assert needed in names
 
 

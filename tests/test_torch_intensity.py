@@ -3,6 +3,7 @@ losses/rank.py, the training mode of nn/blocks.py) held against the JAX
 package on the CPU, with the same weights (through rank_from_flax) and the
 same mixup weights."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,7 +39,8 @@ def _torch_model(variables, fused, dtype=torch.float32):
 def test_rank_model_matches_flax(fused):
     jmodel, variables = rank_variables(seed=1, fused=fused)
     batch = rank_batch(seed=2)
-    want = jmodel.apply(variables, *(jnp.asarray(a) for a in batch))
+    # jitted: one compilation instead of one per primitive
+    want = jax.jit(jmodel.apply)(variables, *(jnp.asarray(a) for a in batch))
     tmodel = _torch_model(variables, fused)
     with torch.no_grad():
         got = tmodel(*(torch.from_numpy(a) for a in batch))

@@ -3,6 +3,7 @@ package on the CPU: the Pallas kernel in interpret mode and its pure-JAX
 reference.  On the CPU the port's wrapper takes the kernel's plain version;
 the CUDA kernel is held against it on the card by chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,11 +49,11 @@ def test_plain_mrf_matches_reference_and_pallas(rng, channels, t):
     params = _params(rng, channels)
     x = rng.standard_normal((2, t, channels)).astype(np.float32)
     got = tm.fused_mrf_stage(torch.from_numpy(x), _torch(params)).numpy()
-    ref = np.asarray(mrf_reference(jnp.asarray(x), _jax(params)))
+    ref = np.asarray(jax.jit(mrf_reference)(jnp.asarray(x), _jax(params)))
     np.testing.assert_allclose(got, ref, **TOL)
-    pallas = np.asarray(
-        jax_fused_mrf_stage(jnp.asarray(x), _jax(params), tile=32, interpret=True)
-    )
+    pallas = np.asarray(jax.jit(  # one compilation instead of one per primitive
+        lambda x_, p_: jax_fused_mrf_stage(x_, p_, tile=32, interpret=True)
+    )(jnp.asarray(x), _jax(params)))
     np.testing.assert_allclose(got, pallas, **TOL)
 
 
@@ -66,9 +67,9 @@ def test_plain_mrf_bf16_repeats_the_reference_rounding_points(rng):
     got = tm.fused_mrf_stage(
         torch.from_numpy(x).bfloat16(), _torch(params), (3, 7)
     ).float().numpy()
-    pallas = np.asarray(jax_fused_mrf_stage(
-        jnp.asarray(x, jnp.bfloat16), _jax(params), (3, 7), tile=32, interpret=True
-    ).astype(jnp.float32))
+    pallas = np.asarray(jax.jit(  # one compilation instead of one per primitive
+        lambda x_, p_: jax_fused_mrf_stage(x_, p_, (3, 7), tile=32, interpret=True)
+    )(jnp.asarray(x, jnp.bfloat16), _jax(params)).astype(jnp.float32))
     diff = np.abs(got - pallas)
     assert diff.max() <= 2.0 ** -5
     assert (diff > 0).mean() < 0.02

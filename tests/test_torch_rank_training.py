@@ -97,8 +97,29 @@ def test_loader_pads_a_trailing_batch_and_flags_the_repeats(corpus):
         BucketLoader(got.dataset, [64], 6, collate_rank_pairs, pad_to_multiple=4)
 
 
+@pytest.fixture(scope="module")
+def rank_trajectory():
+    """Weights, a batch, and the reference's loss and gradient on it through
+    the fused path (interpret mode), compiled once for both moment dtypes."""
+    fa._INTERPRET = True
+    try:
+        jmodel, variables = rank_variables(seed=3, fused=True, dropout=0.0)
+        batch = rank_batch(seed=4)
+        jbatch = [jnp.asarray(a) for a in batch]
+
+        def j_loss(params):
+            out = jmodel.apply(params, *jbatch, deterministic=False)
+            return jax_rank_loss(out, jbatch[2], alpha=0.1, beta=1.0)[0]
+
+        j_grad = jax.jit(jax.value_and_grad(j_loss))
+        j_grad(variables)  # compile under interpret mode
+        return variables, batch, j_grad
+    finally:
+        fa._INTERPRET = False
+
+
 @pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
-def test_training_trajectory_matches_a_jax_step(moment_dtype):
+def test_training_trajectory_matches_a_jax_step(rank_trajectory, moment_dtype):
     """Four optimizer steps on one batch from the same weights, with the same
     λ and no dropout, through the fused path on both sides (the port's
     Function and plain backward, the reference's custom VJP in interpret
@@ -111,21 +132,18 @@ def test_training_trajectory_matches_a_jax_step(moment_dtype):
     from tests.torch_port_util import SMALL_RANK
 
     lr, wd = 1e-3, 1e-2
-    jmodel, variables = rank_variables(seed=3, fused=True, dropout=0.0)
-    batch = rank_batch(seed=4)
-    jbatch = [jnp.asarray(a) for a in batch]
-
-    def j_loss(params):
-        out = jmodel.apply(params, *jbatch, deterministic=False)
-        return jax_rank_loss(out, jbatch[2], alpha=0.1, beta=1.0)[0]
-
+    variables, batch, j_grad = rank_trajectory
     tx = jax_make_optimizer(JaxTrainConfig(learning_rate=lr, weight_decay=wd,
                                            moment_dtype=moment_dtype))
+
     @jax.jit
-    def j_step(params, opt_state):
-        loss, grads = jax.value_and_grad(j_loss)(params)
+    def j_update(params, opt_state, grads):
         updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), opt_state, loss
+        return optax.apply_updates(params, updates), opt_state
+
+    def j_step(params, opt_state):
+        loss, grads = j_grad(params)
+        return (*j_update(params, opt_state, grads), loss)
 
     params, opt_state = variables, tx.init(variables)
     want = []
@@ -176,9 +194,10 @@ def test_eval_step_matches_the_reference_passes(corpus):
     args = [jnp.asarray(batch[k]) for k in ("emo_x", "neu_x", "emotions", "lengths")]
     rv = jnp.asarray(batch["row_valid"])
     lin = jnp.tile(jnp.linspace(0.0, 1.0, b)[None, :], (2, 1))
-    preds = jmodel.apply(variables, *args, lin)
+    apply = jax.jit(jmodel.apply)  # one compilation instead of one per primitive
+    preds = apply(variables, *args, lin)
     _, want = jax_rank_loss(preds, args[2], 0.1, 1.0, row_weights=rv)
-    pairs = jmodel.apply(variables, *args, jnp.stack([jnp.ones(b), jnp.zeros(b)]))
+    pairs = apply(variables, *args, jnp.stack([jnp.ones(b), jnp.zeros(b)]))
     _, inf = jax_rank_loss(pairs, args[2], 0.1, 1.0, row_weights=rv)
     want = {k: float(v) for k, v in want.items()}
     want.update(loss_informative=float(inf["loss"]),

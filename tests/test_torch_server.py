@@ -141,17 +141,26 @@ def test_http_health_synthesize_batch(served):
 
 
 def test_http_errors_and_streaming_refusal(served):
-    _, base = served
+    """Bad requests are refused with 400, streamed ones too: every check of a
+    streamed request runs before its chunked 200 starts.  A valid streamed
+    request is answered with chunked audio/L16."""
+    cfg, base = served
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(base, "/synthesize", {"text": "x", "speaker": "nope", "emotion": 0})
     assert e.value.code == 400 and "error" in json.loads(e.value.read())
-    # streaming is not ported: refused with a message, never answered with a
-    # silent non-streamed body
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(base, "/synthesize", {"text": "Hello.", "speaker": 0,
-                                    "emotion": 0, "stream": True})
-    assert e.value.code == 501
-    assert "stream" in json.loads(e.value.read())["error"]
+    for bad in ({"speaker": 0, "emotion": "nope"},
+                {"speaker": 0, "emotion": 0, "speaker_mix": {"a": 1.0}},
+                {"speaker": 0, "emotion": 0, "ssml": "<speak>Hi.</speak>"},
+                {"speaker": 0, "emotion": 0, "text": ""}):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(base, "/synthesize", {"text": "Hello.", "stream": True, **bad})
+        assert e.value.code == 400 and "error" in json.loads(e.value.read())
+    with _post(base, "/synthesize", {"text": "Hello there.", "speaker": 0,
+                                     "emotion": 0, "stream": True}) as r:
+        assert r.status == 200 and r.headers["Content-Type"] == "audio/L16"
+        assert r.headers["X-Sample-Rate"] == str(cfg.audio.sampling_rate)
+        pcm = np.frombuffer(r.read(), "<i2")
+    assert pcm.size > 0 and pcm.size % cfg.audio.hop_length == 0
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(base, "/nowhere", {"text": "x"})
     assert e.value.code == 404
