@@ -46,6 +46,14 @@ a non-zero exit:
 14. stream    load_synthesizer from the two experiment directories and a
               seeded .npz vocoder: chunked against unchunked vocoding, warm
               time-to-first-audio, a streamed POST /synthesize, launches
+15. preprocess  a raw corpus in EmoV-DB's layout made from the seed through
+              prepare_corpus and preprocess_all(device_mel=True): the card's
+              mel and energy against the numpy golden, the rank pair lists
+              and FS2 splits, every .npz read back
+16. evaluate  Evaluator.run (both conditionings, F0 rows through the vocoder
+              kernels) and evaluate_intensity_efficacy on the experiments of
+              phases 8 and 12 over phase 15's corpus: finite reports,
+              launches, the eval forward against the all-plain one
 
 The last line is {"ok": true, "device": {...}}; before it stand the card line
 and one {"kernels": [...]} line.  Without a GPU the script exits non-zero and
@@ -1446,7 +1454,8 @@ def fs2_phases(root, rank_exp, voc_sd, dev):
     """Phases 12-14 on the corpus under ``root`` and the rank experiment
     ``rank_exp``: FS2 training (its attention launches counted against the
     forwards that make them), the FS2 train parity, and the streamed path
-    (counted likewise).  Returns the two paths' launch counts."""
+    (counted likewise).  Returns the FS2 experiment and the two paths'
+    launch counts."""
     from emotts_torch.nn.fastspeech2 import FastSpeech2
     from emotts_torch.nn.intensity import IntensityExtractor
     from emotts_torch.ops import attention
@@ -1483,7 +1492,370 @@ def fs2_phases(root, rank_exp, voc_sd, dev):
     t0 = time.perf_counter()
     stream_launches, streamed = stream_phase(root, fs2_exp, rank_exp, voc_sd, dev)
     emit("stream", seconds=time.perf_counter() - t0, **streamed)
-    return fs2_launches, stream_launches
+    return fs2_exp, fs2_launches, stream_launches
+
+
+# --------------------------------------------------------------------------
+# phases 15-16: raw audio to features on the card, then the evaluation
+# reports through the attention and vocoder kernels
+# --------------------------------------------------------------------------
+
+RAW_UTTS = 3  # utterances per (speaker, emotion); EmoV-DB has about 70-400
+RAW_SR = 44100  # EmoV-DB's recordings are not at the model's 16 kHz
+EVAL_F0_UTTS = 4  # F0 rows through the vocoder per evaluation run
+_RAW_PHONES = ("HH", "AH0", "L", "OW1", "W", "ER1", "D", "K", "AE1", "T", "S",
+               "IY1", "N", "M", "EY1", "R")
+_UNVOICED = {"HH", "K", "T", "S"}
+_SPEAKER_F0 = (210.0, 230.0, 115.0, 125.0)  # bea, jenie, josh, sam
+
+
+def raw_config(root):
+    """Config() defaults (16 kHz, n_fft 1024, hop 256, 80 mels; the five
+    frame buckets) over a raw corpus under ``root``: ``raw/`` in EmoV-DB's
+    layout, ``aligned/`` its TextGrids, ``corpus/`` and ``features/`` what
+    prepare_corpus and preprocess_all write, and the experiments of the
+    training phases.  One test utterance per (speaker, emotion) so that the
+    rank pair lists have both splits at this corpus size."""
+    from emotts_torch.utils.config import Config
+
+    cfg = Config()
+    d = cfg.data
+    d.data_path = os.path.join(root, "raw")
+    d.corpus_path = os.path.join(root, "corpus")
+    d.textgrid_path = os.path.join(root, "aligned")
+    d.preprocessed_path = os.path.join(root, "features")
+    d.experiment_path = os.path.join(root, "experiments")
+    d.test_utts_per_emotion = 1
+    return cfg
+
+
+def make_raw_corpus(cfg, seed, utts=RAW_UTTS):
+    """A raw corpus in EmoV-DB's layout, made with numpy from ``seed``:
+    ``<speaker>/<emotion>/<emotion>_1-28_<id>.wav`` (16-bit, 44.1 kHz) and
+    ``cmuarctic.data``, plus the aligner's TextGrids, written by the port's
+    write_textgrid.  An utterance is 1.5-6 s: silence, then phones of about
+    120 ms (voiced: four harmonics of an F0 that drifts by ±10 % around the
+    speaker's and emotion's own; unvoiced: noise), then silence, and noise
+    under all of it.  Returns (utterances, seconds of audio)."""
+    from emotts_torch.audio.textgrid import Interval, write_textgrid
+    from emotts_torch.audio.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    lines, seconds, n = [], 0.0, 0
+    for i in range(1, utts + 1):
+        lines.append(f'( arctic_a{i:04d} "Sentence number {i} of the made corpus." )')
+    for si, speaker in enumerate(cfg.data.speakers):
+        os.makedirs(os.path.join(cfg.data.textgrid_path, speaker), exist_ok=True)
+        for ei, emotion in enumerate(cfg.data.emotions):
+            out = os.path.join(cfg.data.data_path, speaker, emotion)
+            os.makedirs(out, exist_ok=True)
+            for i in range(1, utts + 1):
+                total = float(rng.uniform(1.5, 6.0))
+                lead, tail = rng.uniform(0.1, 0.3, size=2)
+                speech = total - lead - tail
+                n_ph = max(3, int(speech / 0.12))
+                durs = rng.dirichlet(np.full(n_ph, 4.0)) * speech
+                phones = rng.choice(_RAW_PHONES, size=n_ph)
+                t = np.arange(int(total * RAW_SR)) / RAW_SR
+                f0 = (_SPEAKER_F0[si % 4] * (1.0 + 0.06 * ei)
+                      * (1.0 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.3, 1.2) * t
+                                            + rng.uniform(0, 2 * np.pi))))
+                phase = 2 * np.pi * np.cumsum(f0) / RAW_SR
+                voiced = sum(np.sin(k * phase) / k for k in range(1, 5))
+                y = 0.005 * rng.standard_normal(len(t))
+                intervals = [Interval(0.0, float(lead), "")]
+                start = float(lead)
+                for d, ph in zip(durs, phones):
+                    s, e = int(start * RAW_SR), int((start + d) * RAW_SR)
+                    y[s:e] += (0.05 * rng.standard_normal(e - s) if ph in _UNVOICED
+                               else 0.35 * voiced[s:e])
+                    intervals.append(Interval(start, start + float(d), str(ph)))
+                    start += float(d)
+                intervals.append(Interval(start, total, "sil"))
+                write_wav(os.path.join(out, f"{emotion}_1-28_{i:04d}.wav"),
+                          y.astype(np.float32), RAW_SR)
+                write_textgrid(os.path.join(cfg.data.textgrid_path, speaker,
+                                            f"{emotion}_{i:04d}.TextGrid"),
+                               intervals, total)
+                seconds += total
+                n += 1
+    with open(os.path.join(cfg.data.data_path, "cmuarctic.data"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return n, seconds
+
+
+def event_ms(dev, fn, *args):
+    """(result, ms) of one call of ``fn`` on ``dev``, between two CUDA events
+    (where the host launches slower than the card runs, its gaps count
+    too); the host's clock elsewhere (the phases also run on the CPU to
+    rehearse them)."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(*args), 1e3 * (time.perf_counter() - t0)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def preprocess_phase(root, dev):
+    """prepare_corpus (44.1 → 16 kHz) and preprocess_all(device_mel=True)
+    on ``dev`` over a raw corpus made from SEED; every mel batch held
+    against mel_energy_np at the JAX package's tolerances
+    (tests/test_audio_mel.py:96-100); the rank pair lists and the FS2 splits
+    over the result, and every written .npz read back through
+    RankPairDataset and FS2Dataset."""
+    from emotts_torch.audio import mel as mel_mod
+    from emotts_torch.audio.native import have_native
+    from emotts_torch.cli.prepare_corpus import prepare_corpus
+    from emotts_torch.data import (FS2Dataset, RankPairDataset, build_fs2_splits,
+                                   build_rank_pair_lists)
+    from emotts_torch.data.preprocess import preprocess_all
+
+    cfg = raw_config(root)
+    t0 = time.perf_counter()
+    n_raw, audio_s = make_raw_corpus(cfg, SEED, RAW_UTTS)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prepared = prepare_corpus(cfg, verbose=False)
+    prepare_s = time.perf_counter() - t0
+    if prepared != n_raw:
+        raise AssertionError(f"prepare_corpus wrote {prepared} of {n_raw} utterances")
+
+    batches = []
+    inner = mel_mod.mel_energy
+
+    def recorded(y, lengths, audio_cfg, floor="hard"):
+        if y.device.type != dev.type:
+            raise AssertionError(f"device_mel computed on {y.device}, not {dev}")
+        out, ms = event_ms(dev, inner, y, lengths, audio_cfg, floor)
+        batches.append(dict(ms=ms, y=y.cpu().numpy(), lengths=lengths.cpu().numpy(),
+                            mel=out[0].cpu().numpy(), energy=out[1].cpu().numpy()))
+        return out
+
+    mel_mod.mel_energy = recorded
+    t0 = time.perf_counter()
+    try:
+        counts = preprocess_all(cfg, verbose=False, device_mel=True, device=dev)
+    finally:
+        mel_mod.mel_energy = inner
+    preprocess_s = time.perf_counter() - t0
+    utterances = sum(counts.values())
+    if utterances != n_raw or not batches:
+        raise AssertionError(f"preprocess_all kept {utterances} of {n_raw} utterances "
+                             f"in {len(batches)} mel batches")
+
+    # the card's mel and energy against the numpy golden, row by row
+    worst = dict(exp_mel=0.0, mean_log_mel=0.0, energy=0.0)
+    for b in batches:
+        for row, n in enumerate(b["lengths"]):
+            ref_mel, ref_energy = mel_mod.mel_energy_np(b["y"][row, :n], cfg.audio)
+            t = ref_mel.shape[1]
+            mel, energy = b["mel"][row, :, :t], b["energy"][row, :t]
+            np.testing.assert_allclose(np.exp(mel), np.exp(ref_mel), rtol=5e-3, atol=5e-4)
+            np.testing.assert_allclose(energy, ref_energy, rtol=1e-3, atol=1e-3)
+            mean_log = float(np.abs(mel - ref_mel).mean())
+            if mean_log >= 5e-3:
+                raise AssertionError(f"mean |log-mel - golden| {mean_log} >= 5e-3")
+            worst["exp_mel"] = max(worst["exp_mel"],
+                                   float(np.abs(np.exp(mel) - np.exp(ref_mel)).max()))
+            worst["mean_log_mel"] = max(worst["mean_log_mel"], mean_log)
+            worst["energy"] = max(worst["energy"], float(np.abs(energy - ref_energy).max()))
+
+    train, test = build_rank_pair_lists(cfg)
+    fs2_train, fs2_valid = build_fs2_splits(cfg)
+    if not (train and test and fs2_train and fs2_valid):
+        raise AssertionError("an empty split list")
+    if len(fs2_train) + len(fs2_valid) != utterances:
+        raise AssertionError("the FS2 splits do not cover every utterance")
+    read = dict(rank_pairs=0, fs2=0)
+    for split in ("train", "test"):
+        ds = RankPairDataset(cfg, split)
+        for i in range(len(ds)):
+            ex = ds[i]
+            if ex.emo_x.shape != (ex.length, cfg.audio.n_mels + 2) or not (
+                    np.isfinite(ex.emo_x).all() and np.isfinite(ex.neu_x).all()):
+                raise AssertionError(f"rank pair {split}/{i} reads back wrong")
+            read["rank_pairs"] += 1
+    for split in ("train", "valid"):
+        ds = FS2Dataset(cfg, split)
+        for i in range(len(ds)):
+            ex = ds[i]
+            if (ex.mel.shape != (int(ex.durations.sum()), cfg.audio.n_mels)
+                    or len(ex.phonemes) != len(ex.durations)
+                    or not np.isfinite(ex.rank_x).all()):
+                raise AssertionError(f"FS2 example {split}/{i} reads back wrong")
+            read["fs2"] += 1
+    if read["rank_pairs"] != len(train) + len(test) or read["fs2"] != utterances:
+        raise AssertionError(f"read back {read}")
+    ms = [b["ms"] for b in batches]
+    # an event pair around a batch also holds the host's launch gaps: the
+    # device's own time of the largest and the smallest batch, calls queued
+    # behind a sleep kernel
+    device_only = {}
+    if dev.type == "cuda":
+        for b in (max(batches, key=lambda b: b["y"].size),
+                  min(batches, key=lambda b: b["y"].size)):
+            y, lengths = torch.from_numpy(b["y"]).to(dev), torch.from_numpy(b["lengths"]).to(dev)
+            device_only[f"{b['y'].shape[0]}x{b['y'].shape[1]}"] = device_ms(
+                lambda: inner(y, lengths, cfg.audio))
+    return cfg, dict(
+        cuts=dict(utterances_per_speaker_emotion=RAW_UTTS, raw_sample_rate=RAW_SR,
+                  note="4 speakers x 5 emotions as EmoV-DB; a few utterances each"),
+        utterances=utterances, audio_seconds=audio_s, make_seconds=made_s,
+        prepare_seconds=prepare_s, preprocess_wall_seconds=preprocess_s,
+        mel_batches=len(batches),
+        mel_batch_rows=[int(b["y"].shape[0]) for b in batches],
+        mel_batch_samples=[int(b["y"].shape[1]) for b in batches],
+        event_ms_per_mel_batch=ms, event_ms_per_mel_batch_mean=float(np.mean(ms)),
+        device_ms_behind_sleep=device_only,
+        native_library_loaded=have_native(),
+        max_err_vs_numpy_golden=worst,
+        tolerance=dict(exp_mel=dict(rtol=5e-3, atol=5e-4), mean_log_mel=5e-3,
+                       energy=dict(rtol=1e-3, atol=1e-3)),
+        rank_pairs=dict(train=len(train), test=len(test)),
+        fs2_split=dict(train=len(fs2_train), valid=len(fs2_valid)), read_back=read)
+
+
+def _finite_report(report, what):
+    """Every number in a report (nested dicts and lists) is finite."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        elif isinstance(node, float) and not math.isfinite(node):
+            raise AssertionError(f"{what}: {path} is {node}")
+
+    walk(report, what)
+
+
+def evaluate_phase(cfg, fs2_exp, rank_exp, dev):
+    """Evaluator.run over the preprocessed corpus's valid split, with the
+    seeded vocoder, under both conditionings, then
+    evaluate_intensity_efficacy for one text: the FS2 and rank experiments
+    of the training phases (fp32 for the evaluator and the scorer, the
+    sweep's Synthesizer in the configured bf16).  The kernels' counters
+    against the forwards that make them; the first batch's teacher-forced
+    PostNet mel through the kernels against the all-plain forward."""
+    from emotts_torch.eval import Evaluator, evaluate_intensity_efficacy
+    from emotts_torch.infer.synthesize import maybe_load_vocoder
+    from emotts_torch.nn.fastspeech2 import FastSpeech2
+    from emotts_torch.nn.hifigan import HiFiGANGenerator
+    from emotts_torch.nn.intensity import IntensityExtractor
+    from emotts_torch.ops import attention, mrf, resblock
+
+    cfg.fastspeech2.fused_attention = cfg.rank_model.fused_attention = True
+    bank = np.load(os.path.join(rank_exp, "intensity.npy"))
+    attention.launch_count = mrf.launch_count = resblock.launch_count = 0
+    counters = dict(fs2=ModuleCounter(FastSpeech2),
+                    extractor=ModuleCounter(IntensityExtractor),
+                    generator=ModuleCounter(HiFiGANGenerator))
+    t0 = time.perf_counter()
+    ev = Evaluator(cfg, fs2_exp, rank_exp, vocoder_params=maybe_load_vocoder(cfg),
+                   device=dev)
+    if not (ev.vocoder.fused_mrf and ev.vocoder.use_pallas_resblocks):
+        raise AssertionError("the evaluator's vocoder does not take the kernels")
+    batch_ms, infer = [], ev.infer
+
+    def timed(batch, rep=None):
+        t = time.perf_counter()
+        out = infer(batch, rep)  # ends in copies to the host: synchronised
+        batch_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    ev.infer = timed
+    reports = {}
+    for conditioning in ("own", "prototype"):
+        path = os.path.join(fs2_exp, f"eval_{conditioning}.json")
+        reports[conditioning] = ev.run(
+            split="valid", out_path=path, f0_max_utts=EVAL_F0_UTTS,
+            conditioning=conditioning,
+            intensity_bank=bank if conditioning == "prototype" else None)
+        with open(path) as f:
+            written = json.load(f)
+        _finite_report(written, f"eval_{conditioning}.json")
+        overall = written["overall"]
+        if written["n_utterances"] == 0 or "f0_rmse_hz" not in overall \
+                or "mcd_dtw_free_running" not in overall:
+            raise AssertionError(f"eval_{conditioning}.json lacks rows: {overall}")
+    eval_s = time.perf_counter() - t0
+    ev.infer = infer
+
+    t0 = time.perf_counter()
+    sweep_path = os.path.join(fs2_exp, "intensity_eval.json")
+    sweep = evaluate_intensity_efficacy(cfg, fs2_exp, rank_exp,
+                                        texts=[cfg.inference.text],
+                                        out_path=sweep_path, device=dev)
+    sweep_s = time.perf_counter() - t0
+    launches = dict(fused_attention=attention.launch_count,
+                    fused_mrf_stage=mrf.launch_count,
+                    fused_resblock1=resblock.launch_count)
+    forwards = {name: c.forwards for name, c in counters.items()}
+    for c in counters.values():
+        c.close()
+    with open(sweep_path) as f:
+        written = json.load(f)
+    _finite_report(written, "intensity_eval.json")
+    n_combos = cfg.n_speakers * (1 + (cfg.n_emotions - 1) * cfg.inference.bucket_size)
+    for key in ("monotonic_fraction_strict", "pairwise_order_accuracy"):
+        if not isinstance(written[key], float):
+            raise AssertionError(f"intensity_eval.json: {key} = {written[key]}")
+    if written["n_synthesized"] != n_combos or written["feature_path"] != "vocoded_audio":
+        raise AssertionError(f"the sweep scored {written['n_synthesized']} of {n_combos} "
+                             f"utterances from {written['feature_path']}")
+
+    f2 = cfg.fastspeech2
+    per_mrf, per_resblock = vocoder_launches(ev.vocoder)
+    expected = dict(
+        fused_attention=(f2.enc_num_layers + f2.dec_num_layers) * forwards["fs2"]
+        + cfg.rank_model.n_encoder_layers * forwards["extractor"],
+        fused_mrf_stage=per_mrf * forwards["generator"],
+        fused_resblock1=per_resblock * forwards["generator"])
+    if launches != expected or min(launches.values()) == 0:
+        raise AssertionError(f"evaluation launches {launches}, expected {expected}")
+
+    # the kernels' eval forward against the all-plain one, uncounted
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg.fastspeech2.fused_attention = plain_cfg.rank_model.fused_attention = False
+    plain = Evaluator(plain_cfg, fs2_exp, rank_exp, device=dev)
+    batch = next(iter(ev.loader("valid").epoch(0)))
+    got, want = ev.infer(batch), plain.infer(batch)
+    tf_err, tf_rel = compare(torch.from_numpy(got[0]), torch.from_numpy(want[0]),
+                             **TOL[torch.float32])
+    same = np.flatnonzero(got[3] == want[3])
+    fr_err = 0.0
+    for i in same:
+        n = int(got[3][i])
+        fr_err = max(fr_err, compare(torch.from_numpy(got[2][i, :n]),
+                                     torch.from_numpy(want[2][i, :n]),
+                                     **TOL[torch.float32])[0])
+    del ev, plain
+    return launches, dict(
+        conditionings={k: dict(n_utterances=r["n_utterances"], overall=r["overall"])
+                       for k, r in reports.items()},
+        eval_seconds=eval_s, eval_batches=len(batch_ms), wall_ms_per_eval_batch=batch_ms,
+        wall_ms_per_eval_batch_mean=float(np.mean(batch_ms)),
+        intensity_sweep=dict(
+            seconds=sweep_s, n_synthesized=written["n_synthesized"],
+            monotonic_fraction_strict=written["monotonic_fraction_strict"],
+            pairwise_order_accuracy=written["pairwise_order_accuracy"],
+            emotion_silhouette_h=written["emotion_silhouette_h"],
+            verdict=written["verdict"]),
+        launches=dict(counted=launches, expected=expected, forwards=forwards,
+                      mrf_launches_per_generator_forward=per_mrf,
+                      resblock_launches_per_generator_forward=per_resblock),
+        kernels_vs_plain=dict(
+            frames=int(batch["mel"].shape[1]), rows=int(batch["mel"].shape[0]),
+            teacher_forced_postnet_max_abs_err=tf_err,
+            teacher_forced_postnet_max_rel_err=tf_rel,
+            free_running_rows_equal_length=int(len(same)),
+            free_running_max_abs_err=fr_err, tolerance=TOL[torch.float32]))
 
 
 def main():
@@ -1605,13 +1977,24 @@ def main():
         emit("train_parity", **train_parity_phase(root, dev))
 
         # -- 12-14. FastSpeech2 training, its parity, streamed serving ---------
-        fs2_launches, stream_launches = fs2_phases(root, exp, weights[1], dev)
+        fs2_exp, fs2_launches, stream_launches = fs2_phases(root, exp, weights[1], dev)
+        torch.cuda.empty_cache()
+
+        # -- 15-16. raw audio to features on the card, then evaluation ---------
+        t0 = time.perf_counter()
+        eval_cfg, prepared = preprocess_phase(root, dev)
+        emit("preprocess", seconds=time.perf_counter() - t0, **prepared)
+        eval_cfg.inference.vocoder_checkpoint = os.path.join(root, "vocoder.npz")
+        t0 = time.perf_counter()
+        eval_launches, evaluated = evaluate_phase(eval_cfg, fs2_exp, exp, dev)
+        emit("evaluate", seconds=time.perf_counter() - t0, **evaluated)
 
     # -- summary ---------------------------------------------------------------
     # a kernel's launches over the counted paths
     serve_launches = dict(launches)
     by_path = dict(serving=serve_launches, training=train_launches,
-                   fs2_training=fs2_launches, streaming=stream_launches)
+                   fs2_training=fs2_launches, streaming=stream_launches,
+                   evaluation=eval_launches)
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in ("fused_attention", "fused_attention_bwd",
                              "fused_mrf_stage", "fused_resblock1")}

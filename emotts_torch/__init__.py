@@ -5,13 +5,15 @@ The JAX package ``emotts`` beside it is the reference.  This package imports
 the reference so that a module's counterpart is found by its path
 (``emotts_torch/nn/blocks.py`` ↔ ``emotts/nn/blocks.py``).
 
-Ported so far — the path that serves synthesis requests, and rank-model
-training followed by bucketization:
+Ported so far — the path that serves synthesis requests, rank-model and
+FastSpeech2 training, bucketization, preprocessing and evaluation:
 
 * ``emotts_torch.utils``  — the configuration tree and experiment
   directories (own copies).
 * ``emotts_torch.text``   — cleaners, ARPABET vocabulary, G2P, SSML-lite.
-* ``emotts_torch.audio``  — WAV output.
+* ``emotts_torch.audio``  — WAV IO and resampling, TextGrids, DIO/StoneMask
+  F0 (numpy, or the ``native/`` library), the mel + energy front end (numpy
+  golden, and tensors on the GPU).
 * ``emotts_torch.ops``    — hand-written CUDA kernels (``csrc/*.cu``) for
   fused attention (forward with dropout, and backward), the HiFi-GAN ResBlock
   and the fused MRF stage, each with its wrapper, its plain PyTorch version
@@ -19,7 +21,11 @@ training followed by bucketization:
 * ``emotts_torch.nn``     — FFT blocks, length regulator, FastSpeech2,
   HiFi-GAN generator, the rank model, conversion of the reference's weights.
 * ``emotts_torch.losses`` — the rank loss.
-* ``emotts_torch.data``   — the rank-pair dataset and the bucketed loader.
+* ``emotts_torch.data``   — preprocessing into per-utterance ``.npz``, the
+  split lists, the rank-pair and FS2 datasets and the bucketed loader.
+* ``emotts_torch.cli``    — corpus preparation (``prepare_corpus``).
+* ``emotts_torch.eval``   — MCD/DTW/F0/duration metrics, ``Evaluator``, the
+  intensity-efficacy report.
 * ``emotts_torch.train``  — AdamW with stored-dtype moments, train state,
   checkpoints, metrics, ``RankTrainer``.
 * ``emotts_torch.infer``  — ``Synthesizer``, the HTTP server, ``bucketize``.

@@ -8,7 +8,7 @@ from emotts_torch.data.datasets import (
     pick_bucket,
 )
 from emotts_torch.data.loader import BucketLoader
-from emotts_torch.data.splits import build_fs2_splits
+from emotts_torch.data.splits import build_fs2_splits, build_rank_pair_lists
 
 __all__ = [
     "BucketLoader",
@@ -17,6 +17,7 @@ __all__ = [
     "RankPairDataset",
     "RankPairExample",
     "build_fs2_splits",
+    "build_rank_pair_lists",
     "collate_fs2",
     "collate_rank_pairs",
     "pick_bucket",

@@ -68,6 +68,43 @@ def _is_flax_tree(weights: Mapping) -> bool:
     return any(isinstance(v, Mapping) for v in weights.values())
 
 
+def build_vocoder(cfg: Config, vocoder_params: Mapping,
+                  vocoder_structure: Optional[Dict] = None,
+                  device="cpu") -> HiFiGANGenerator:
+    """A HiFiGANGenerator with ``vocoder_params`` (the reference's params
+    tree, or a state_dict of this package's generator), in eval mode on
+    ``device``.  Without ``vocoder_structure`` the structure is inferred
+    from a params tree (any V1/V2/V3-family model); a state_dict needs it."""
+    flax_tree = _is_flax_tree(vocoder_params)
+    if vocoder_structure is None:
+        if not flax_tree:
+            raise ValueError(
+                "a vocoder state_dict needs an explicit vocoder_structure"
+            )
+        vocoder_structure = generator_structure_from_params(
+            vocoder_params, expected_upsample=cfg.audio.hop_length
+        )
+    vocoder = HiFiGANGenerator(**vocoder_structure)
+    if flax_tree:
+        vocoder_params = hifigan_from_flax(vocoder_params)
+    vocoder.load_state_dict(vocoder_params)
+    return vocoder.to(device).eval()
+
+
+def kernel_vocoder_structure(cfg: Config, vocoder_params: Mapping,
+                             device) -> Optional[Dict]:
+    """The generator structure of a params tree as ``load_synthesizer``
+    builds it: on a CUDA device through the vocoder kernels
+    (``fused_mrf``, ``use_pallas_resblocks``); elsewhere None (inferred,
+    plain path)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return dict(
+        generator_structure_from_params(
+            vocoder_params, expected_upsample=cfg.audio.hop_length),
+        fused_mrf=True, use_pallas_resblocks=True)
+
+
 class Synthesizer:
     def __init__(
         self,
@@ -103,25 +140,8 @@ class Synthesizer:
         self.model.load_state_dict(fs2_variables)
         self.model.to(self.device).eval()
 
-        if vocoder_params is not None:
-            flax_tree = _is_flax_tree(vocoder_params)
-            if vocoder_structure is None:
-                if not flax_tree:
-                    raise ValueError(
-                        "a vocoder state_dict needs an explicit vocoder_structure"
-                    )
-                # build the generator to match the checkpoint's actual
-                # structure (any V1/V2/V3-family model)
-                vocoder_structure = generator_structure_from_params(
-                    vocoder_params, expected_upsample=cfg.audio.hop_length
-                )
-            self.vocoder = HiFiGANGenerator(**vocoder_structure)
-            if flax_tree:
-                vocoder_params = hifigan_from_flax(vocoder_params)
-            self.vocoder.load_state_dict(vocoder_params)
-            self.vocoder.to(self.device).eval()
-        else:
-            self.vocoder = None
+        self.vocoder = (None if vocoder_params is None else build_vocoder(
+            cfg, vocoder_params, vocoder_structure, self.device))
         self.vocoder_params = vocoder_params
         self.intensity_bank = intensity_bank
         self.g2p = g2p or G2P(
@@ -653,12 +673,8 @@ def load_synthesizer(cfg: Config, fs2_exp: Optional[str] = None,
     intensity_path = os.path.join(rank_exp, "intensity.npy")
     bank = np.load(intensity_path) if os.path.exists(intensity_path) else None
     vocoder = maybe_load_vocoder(cfg)
-    structure = None
-    if vocoder is not None and torch.device(device).type == "cuda":
-        structure = dict(
-            generator_structure_from_params(
-                vocoder, expected_upsample=cfg.audio.hop_length),
-            fused_mrf=True, use_pallas_resblocks=True)
+    structure = (None if vocoder is None
+                 else kernel_vocoder_structure(cfg, vocoder, device))
     return Synthesizer(cfg, fs2_params, vocoder, bank,
                        vocoder_structure=structure, device=device)
 

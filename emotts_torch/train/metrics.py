@@ -4,6 +4,8 @@ step timing.  Counterpart of ``emotts/train/metrics.py``."""
 from __future__ import annotations
 
 import json
+import os
+import socket
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -14,22 +16,37 @@ import torch
 
 class MetricsWriter:
     """Writes every scalar to ``<exp>/metrics.jsonl`` and, where TensorBoard
-    is importable, to an event file beside it."""
+    is importable, to an event file beside it.
+
+    The event file is written record by record with TensorBoard's own
+    record framing and protos: ``torch.utils.tensorboard`` would import
+    TensorFlow where it is installed (seconds at every trainer's start) to
+    write the same records."""
 
     def __init__(self, exp_path: str):
         self.exp_path = Path(exp_path)
         self.exp_path.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.exp_path / "metrics.jsonl", "a")
         try:
-            from torch.utils.tensorboard import SummaryWriter
-
-            self._tb = SummaryWriter(str(self.exp_path))
-        except Exception:  # TensorBoard is optional
+            from tensorboard.compat.proto.event_pb2 import Event
+            from tensorboard.compat.proto.summary_pb2 import Summary
+            from tensorboard.summary.writer.record_writer import RecordWriter
+        except ImportError:  # TensorBoard is optional
             self._tb = None
+        else:
+            self._event, self._summary = Event, Summary
+            name = (f"events.out.tfevents.{int(time.time())}."
+                    f"{socket.gethostname()}.{os.getpid()}.0")
+            self._tb = RecordWriter(open(self.exp_path / name, "wb"))
+            self._tb.write(Event(wall_time=time.time(),
+                                 file_version="brain.Event:2").SerializeToString())
 
     def scalar(self, tag: str, value: float, step: int) -> None:
         if self._tb is not None:
-            self._tb.add_scalar(tag, value, step)
+            summary = self._summary(value=[self._summary.Value(
+                tag=tag, simple_value=float(value))])
+            self._tb.write(self._event(wall_time=time.time(), step=int(step),
+                                       summary=summary).SerializeToString())
         self._jsonl.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
 
@@ -37,6 +54,8 @@ class MetricsWriter:
         for k, v in values.items():
             self.scalar(f"{prefix}{k}", float(v), step)
         self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.flush()
 
     def close(self) -> None:
         if self._tb is not None:

@@ -7,7 +7,6 @@ kernel itself is held against that plain version on the card by
 chip_smoke.py.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +17,7 @@ from emotts.nn.blocks import MultiHeadSelfAttention as JaxMHSA
 from emotts_torch.nn.blocks import MultiHeadSelfAttention
 from emotts_torch.nn.convert import fs2_from_flax
 from emotts_torch.ops import attention as ta
-from tests.torch_port_util import single_torch_thread  # noqa: F401
+from tests.torch_port_util import jit, single_torch_thread  # noqa: F401
 
 # fp32 on both sides; the two differ in summation order only
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -95,7 +94,7 @@ def test_multi_head_self_attention_matches_flax(fused):
                for leaf, a in sorted(sub.items())}
         for name, sub in sorted(shapes.items())
     }
-    ref = jax.jit(lambda p, x, v: jm.apply(p, x, v, True))(  # one compilation
+    ref = jit(lambda p, x, v: jm.apply(p, x, v, True))(  # one compilation
         {"params": params}, jnp.asarray(x), jnp.asarray(valid))
 
     tm = MultiHeadSelfAttention(d_model, heads, fused=fused)

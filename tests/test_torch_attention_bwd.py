@@ -17,7 +17,7 @@ import torch
 
 import emotts.ops.attention as fa
 from emotts_torch.ops import attention as ta
-from tests.torch_port_util import single_torch_thread  # noqa: F401
+from tests.torch_port_util import jit, single_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -50,7 +50,7 @@ def test_plain_backward_matches_pallas_interpret_vjp(dtype, t):
     q, k, v, bias, g = _inputs(t=t)
     jd = jnp.dtype(dtype)
     jq, jk, jv, jg = (jnp.asarray(a).astype(jd) for a in (q, k, v, g))
-    @jax.jit  # one compilation instead of one per primitive
+    @jit  # one compilation instead of one per primitive
     def reference(q_, k_, v_, g_):
         _, vjp = jax.vjp(
             lambda a, b, c: fa.fused_attention(

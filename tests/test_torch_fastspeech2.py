@@ -3,7 +3,6 @@ flax module on the CPU, in fp32, with weights made from a numpy seed and
 carried across by emotts_torch.nn.convert.  The JAX side reaches its fused
 attention kernel in Pallas interpret mode."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +16,7 @@ from emotts_torch.nn.length_regulator import (average_over_durations,
                                               length_regulate, phone_index_map)
 from emotts_torch.utils.config import Config
 from tests.torch_port_util import (  # noqa: F401
-    fs2_variables, shrink, single_torch_thread)
+    fs2_variables, jit, shrink, single_torch_thread)
 
 # fp32 end to end through 4 FFT blocks, LayerNorms computed by different
 # formulas (E[x²]−E[x]² in flax, Welford in torch): a few 1e-5 on O(1) values
@@ -83,7 +82,7 @@ def test_free_running_forward_matches_flax(rng, prenet, postnet, blend):
     jmodel, variables, tmodel = _models(prenet, postnet)
     tokens, spk, intensity = _batch(rng, blend)
     # jitted: one compilation instead of one per primitive
-    ref = jax.jit(lambda v, tok, s, i: jmodel.apply(
+    ref = jit(lambda v, tok, s, i: jmodel.apply(
         v, tok, s, intensity=i, pace=1.3, pitch_rate=0.9, energy_rate=1.1,
         max_mel_len=64))(variables, jnp.asarray(tokens), jnp.asarray(spk),
                          jnp.asarray(intensity))
@@ -107,7 +106,7 @@ def test_teacher_forced_forward_matches_flax(rng, prenet, postnet, fused):
     frame_valid = np.arange(t)[None, :] < durations.sum(axis=1)[:, None]
     pitch = (rng.standard_normal((3, t)) * frame_valid).astype(np.float32)
     energy = (rng.standard_normal((3, t)) * frame_valid).astype(np.float32)
-    ref = jax.jit(lambda v, tok, s, d, p, e, i: jmodel.apply(
+    ref = jit(lambda v, tok, s, d, p, e, i: jmodel.apply(
         v, tok, s, durations=d, pitch=p, energy=e, intensity=i, max_mel_len=t))(
         variables, *(jnp.asarray(a) for a in (tokens, spk, durations, pitch,
                                               energy, intensity)))

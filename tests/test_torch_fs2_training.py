@@ -37,7 +37,7 @@ from emotts_torch.train.fs2_trainer import (FS2Trainer, batch_to_device,
                                             extractor_params_from_rank)
 from emotts_torch.utils.config import load_config
 from tests.synthetic_corpus import make_corpus
-from tests.torch_port_util import (fs2_variables, rank_variables,
+from tests.torch_port_util import (fs2_variables, jit, rank_variables,
                                    single_torch_thread)  # noqa: F401
 
 LR = 1e-3
@@ -156,7 +156,7 @@ def jax_step(corpus, weights):
         return jax_fs2_loss(preds, b["mel"], b["durations"], b["mel_len"],
                             b["phon_len"], jcfg.loss, row_weights=row_weights)
 
-    @jax.jit
+    @jit
     def train_step(params, opt_state, batch_stats, b):
         def loss_fn(p):
             preds, mutated = forward(p, batch_stats, b, True)
@@ -168,7 +168,7 @@ def jax_step(corpus, weights):
         updates, opt_state = tx.update(grads, opt_state, params)
         return optax.apply_updates(params, updates), opt_state, new_bs, parts, preds
 
-    @jax.jit
+    @jit
     def eval_step(params, batch_stats, b):
         preds = forward(params, batch_stats, b, False)
         return loss(preds, b, b["row_valid"])[1], preds[0]
@@ -211,7 +211,7 @@ def test_segment_mean_matches_jax():
     durations[1] = [9, 9, 9, 2, 0, 0, 1]  # runs past T: clamped into [0, T]
     durations[2, 3] = -2  # negative: no frames
     got = segment_mean(torch.from_numpy(frames), torch.from_numpy(durations))
-    want = np.asarray(jax.jit(jax_segment_mean)(jnp.asarray(frames),
+    want = np.asarray(jit(jax_segment_mean)(jnp.asarray(frames),
                                                  jnp.asarray(durations)))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
     assert (got[0, 2] == 0).all() and (got[1, 4:6] == 0).all()
@@ -240,7 +240,7 @@ def loss_case():
             np.array([24, 10, 17], np.int32), np.array([6, 3, 5], np.int32))
     cfg = JaxLossConfig(**LOSS_WEIGHTS)
 
-    @jax.jit
+    @jit
     def both(*a):
         return (jax_fs2_loss(*a, cfg)[1],
                 jax_fs2_loss(*a, cfg, row_weights=jnp.asarray(ROW_WEIGHTS))[1])

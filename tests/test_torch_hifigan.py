@@ -4,7 +4,6 @@ weights made from a numpy seed and carried across by
 emotts_torch.nn.convert.  The JAX side runs its Pallas kernels in interpret
 mode (they select it themselves off the TPU)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +14,7 @@ from emotts_torch.nn.convert import hifigan_from_flax, load_vocoder_checkpoint
 from emotts_torch.nn.hifigan import (HiFiGANGenerator, ResBlock1,
                                      generator_structure_from_params)
 from tests.torch_port_util import (  # noqa: F401
-    SMALL_VOCODER, vocoder_params, single_torch_thread)
+    SMALL_VOCODER, jit, vocoder_params, single_torch_thread)
 
 # fp32 on both sides through 2 upsample stages; waveform values in (-1, 1)
 TOL = dict(rtol=1e-4, atol=2e-5)
@@ -30,7 +29,7 @@ TOL = dict(rtol=1e-4, atol=2e-5)
 def test_waveform_matches_flax(rng, flags):
     jgen, tree = vocoder_params(**flags)
     mel = rng.standard_normal((2, 11, SMALL_VOCODER["in_channels"])).astype(np.float32)
-    ref = np.asarray(jax.jit(jgen.apply)(tree, jnp.asarray(mel)))  # one compilation
+    ref = np.asarray(jit(jgen.apply)(tree, jnp.asarray(mel)))  # one compilation
     tgen = HiFiGANGenerator(**SMALL_VOCODER, **flags)
     tgen.load_state_dict(hifigan_from_flax(tree))
     with torch.no_grad():

@@ -39,7 +39,11 @@ def test_there_are_sources_to_check():
                    "emotts_torch/infer/bucketize.py", "emotts_torch/nn/intensity.py",
                    "emotts_torch/losses/fs2.py", "emotts_torch/data/splits.py",
                    "emotts_torch/train/fs2_trainer.py",
-                   "emotts_torch/infer/streaming.py"):
+                   "emotts_torch/infer/streaming.py", "emotts_torch/audio/mel.py",
+                   "emotts_torch/audio/f0.py", "emotts_torch/audio/native.py",
+                   "emotts_torch/data/preprocess.py", "emotts_torch/cli/prepare_corpus.py",
+                   "emotts_torch/eval/evaluate.py", "emotts_torch/eval/intensity_eval.py",
+                   "emotts_torch/eval/metrics.py"):
         assert needed in names
 
 
@@ -65,6 +69,34 @@ def test_importing_the_package_loads_no_jax():
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def test_eval_and_preprocess_import_without_sklearn_or_matplotlib(monkeypatch):
+    """The GPU machine has neither: the silhouette's scikit-learn stays
+    behind a lazy import, and the report reads None there."""
+    import importlib
+
+    import numpy as np
+
+    for name in list(sys.modules):
+        if name.startswith(("emotts_torch.eval", "emotts_torch.data.preprocess")):
+            monkeypatch.delitem(sys.modules, name)
+    for name in ("sklearn", "matplotlib"):
+        monkeypatch.setitem(sys.modules, name, None)  # import → ImportError
+    importlib.import_module("emotts_torch.data.preprocess")
+    ie = importlib.import_module("emotts_torch.eval.intensity_eval")
+    importlib.import_module("emotts_torch.eval")
+    from emotts_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.data.speakers, cfg.data.emotions = ["a"], ["neutral", "amused", "angry"]
+    ev = object.__new__(ie.IntensityEfficacyEvaluator)
+    ev.cfg = cfg
+    rows = [dict(text_i=0, spk=0, emo=e, level=float(lv), score=float(e + lv))
+            for e in (1, 2) for lv in (0, 1, 2)]
+    report = ev._metrics(rows, np.eye(6, 3, dtype=np.float32), [0.0, 1.0, 2.0])
+    assert report["emotion_silhouette_h"] is None
+    assert report["monotonic_fraction_strict"] == 1.0
 
 
 def test_kernel_sources_are_hand_written_cuda():

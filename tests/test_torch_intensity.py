@@ -3,7 +3,6 @@ losses/rank.py, the training mode of nn/blocks.py) held against the JAX
 package on the CPU, with the same weights (through rank_from_flax) and the
 same mixup weights."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +14,7 @@ from emotts_torch.losses.rank import rank_loss
 from emotts_torch.nn import blocks
 from emotts_torch.nn.convert import rank_from_flax
 from emotts_torch.nn.intensity import RankModel
-from tests.torch_port_util import (SMALL_RANK, rank_batch, rank_variables,
+from tests.torch_port_util import (SMALL_RANK, jit, rank_batch, rank_variables,
                                    single_torch_thread)  # noqa: F401
 
 # fp32 on both sides through two FFT blocks; they differ in summation order
@@ -40,7 +39,7 @@ def test_rank_model_matches_flax(fused):
     jmodel, variables = rank_variables(seed=1, fused=fused)
     batch = rank_batch(seed=2)
     # jitted: one compilation instead of one per primitive
-    want = jax.jit(jmodel.apply)(variables, *(jnp.asarray(a) for a in batch))
+    want = jit(jmodel.apply)(variables, *(jnp.asarray(a) for a in batch))
     tmodel = _torch_model(variables, fused)
     with torch.no_grad():
         got = tmodel(*(torch.from_numpy(a) for a in batch))
@@ -60,7 +59,7 @@ def test_rank_model_in_bfloat16_follows_flax():
     places, so this is held loosely; logits come out in fp32."""
     jmodel, variables = rank_variables(seed=1, fused=False, dtype=jnp.bfloat16)
     batch = rank_batch(seed=2)
-    want = jmodel.apply(variables, *(jnp.asarray(a) for a in batch))
+    want = jit(jmodel.apply)(variables, *(jnp.asarray(a) for a in batch))
     tmodel = _torch_model(variables, False, torch.bfloat16)
     with torch.no_grad():
         got = tmodel(*(torch.from_numpy(a) for a in batch))

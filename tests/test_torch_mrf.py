@@ -3,7 +3,6 @@ package on the CPU: the Pallas kernel in interpret mode and its pure-JAX
 reference.  On the CPU the port's wrapper takes the kernel's plain version;
 the CUDA kernel is held against it on the card by chip_smoke.py."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +14,7 @@ from emotts_torch.ops import mrf as tm
 from emotts_torch.ops.resblock import (SMEM_FLOATS, chain_halo, ring_floats,
                                        row_floats, z_offset)
 from tests.torch_port_util import (  # noqa: F401
-    conv1d_btc_3xtf32, conv1d_btc_tf32, single_torch_thread, tf32_round)
+    conv1d_btc_3xtf32, conv1d_btc_tf32, jit, single_torch_thread, tf32_round)
 
 # fp32 on both sides, different summation order
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -49,9 +48,9 @@ def test_plain_mrf_matches_reference_and_pallas(rng, channels, t):
     params = _params(rng, channels)
     x = rng.standard_normal((2, t, channels)).astype(np.float32)
     got = tm.fused_mrf_stage(torch.from_numpy(x), _torch(params)).numpy()
-    ref = np.asarray(jax.jit(mrf_reference)(jnp.asarray(x), _jax(params)))
+    ref = np.asarray(jit(mrf_reference)(jnp.asarray(x), _jax(params)))
     np.testing.assert_allclose(got, ref, **TOL)
-    pallas = np.asarray(jax.jit(  # one compilation instead of one per primitive
+    pallas = np.asarray(jit(  # one compilation instead of one per primitive
         lambda x_, p_: jax_fused_mrf_stage(x_, p_, tile=32, interpret=True)
     )(jnp.asarray(x), _jax(params)))
     np.testing.assert_allclose(got, pallas, **TOL)
@@ -67,7 +66,7 @@ def test_plain_mrf_bf16_repeats_the_reference_rounding_points(rng):
     got = tm.fused_mrf_stage(
         torch.from_numpy(x).bfloat16(), _torch(params), (3, 7)
     ).float().numpy()
-    pallas = np.asarray(jax.jit(  # one compilation instead of one per primitive
+    pallas = np.asarray(jit(  # one compilation instead of one per primitive
         lambda x_, p_: jax_fused_mrf_stage(x_, p_, (3, 7), tile=32, interpret=True)
     )(jnp.asarray(x, jnp.bfloat16), _jax(params)).astype(jnp.float32))
     diff = np.abs(got - pallas)

@@ -30,7 +30,7 @@ from emotts_torch.train.checkpoint import CheckpointManager, load_best_params
 from emotts_torch.train.rank_trainer import RankTrainer, build_rank_model
 from emotts_torch.utils.config import load_config
 from tests.synthetic_corpus import make_corpus
-from tests.torch_port_util import (rank_batch, rank_variables,
+from tests.torch_port_util import (jit, rank_batch, rank_variables,
                                    single_torch_thread)  # noqa: F401
 
 
@@ -111,7 +111,7 @@ def rank_trajectory():
             out = jmodel.apply(params, *jbatch, deterministic=False)
             return jax_rank_loss(out, jbatch[2], alpha=0.1, beta=1.0)[0]
 
-        j_grad = jax.jit(jax.value_and_grad(j_loss))
+        j_grad = jit(jax.value_and_grad(j_loss))
         j_grad(variables)  # compile under interpret mode
         return variables, batch, j_grad
     finally:
@@ -136,7 +136,7 @@ def test_training_trajectory_matches_a_jax_step(rank_trajectory, moment_dtype):
     tx = jax_make_optimizer(JaxTrainConfig(learning_rate=lr, weight_decay=wd,
                                            moment_dtype=moment_dtype))
 
-    @jax.jit
+    @jit
     def j_update(params, opt_state, grads):
         updates, opt_state = tx.update(grads, opt_state, params)
         return optax.apply_updates(params, updates), opt_state
@@ -194,7 +194,7 @@ def test_eval_step_matches_the_reference_passes(corpus):
     args = [jnp.asarray(batch[k]) for k in ("emo_x", "neu_x", "emotions", "lengths")]
     rv = jnp.asarray(batch["row_valid"])
     lin = jnp.tile(jnp.linspace(0.0, 1.0, b)[None, :], (2, 1))
-    apply = jax.jit(jmodel.apply)  # one compilation instead of one per primitive
+    apply = jit(jmodel.apply)  # one compilation instead of one per primitive
     preds = apply(variables, *args, lin)
     _, want = jax_rank_loss(preds, args[2], 0.1, 1.0, row_weights=rv)
     pairs = apply(variables, *args, jnp.stack([jnp.ones(b), jnp.zeros(b)]))

@@ -3,7 +3,6 @@ package on the CPU: the Pallas kernel in interpret mode and its pure-JAX
 reference.  On the CPU the port's wrapper takes the kernel's plain version;
 the CUDA kernel is held against it on the card by chip_smoke.py."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +12,7 @@ from emotts.ops.resblock import fused_resblock1 as jax_fused_resblock1
 from emotts.ops.resblock import resblock1_reference
 from emotts_torch.ops import resblock as tr
 from tests.torch_port_util import (  # noqa: F401
-    conv1d_btc_3xtf32, single_torch_thread)
+    conv1d_btc_3xtf32, jit, single_torch_thread)
 
 # fp32 on both sides, different summation order over k·C products per output
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -38,10 +37,10 @@ def test_plain_resblock_matches_reference_and_pallas(rng, channels, k, t):
     got = tr.fused_resblock1(torch.from_numpy(x),
                              *(torch.from_numpy(p) for p in params), dil).numpy()
     jx, jp = jnp.asarray(x), [jnp.asarray(p) for p in params]
-    ref = np.asarray(jax.jit(resblock1_reference, static_argnums=5)(jx, *jp, dil))
+    ref = np.asarray(jit(resblock1_reference, static_argnums=5)(jx, *jp, dil))
     np.testing.assert_allclose(got, ref, **TOL)
     # t is no multiple of the kernel's tile: its tail masking is in play
-    pallas = np.asarray(jax.jit(  # one compilation instead of one per primitive
+    pallas = np.asarray(jit(  # one compilation instead of one per primitive
         lambda x_, *p_: jax_fused_resblock1(x_, *p_, dil, tile=128, interpret=True)
     )(jx, *jp))
     np.testing.assert_allclose(got, pallas, **TOL)

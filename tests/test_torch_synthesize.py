@@ -6,7 +6,6 @@ import numpy as np
 import pytest
 import torch
 
-import emotts.ops.attention as fa
 from emotts.infer.synthesize import Synthesizer as JaxSynthesizer
 from emotts.utils.config import Config as JaxConfig
 from emotts_torch.infer.synthesize import Synthesizer, pick_bucket, resolve_name
@@ -27,20 +26,22 @@ PCM_STEPS = 1
 
 @pytest.fixture(scope="module")
 def pair():
-    fa._INTERPRET = True
-    try:
-        jcfg = shrink(JaxConfig())
-        _, variables = fs2_variables(jcfg, seed=11)
-        _, voc_tree = vocoder_params(VOCODER, seed=12, scale=0.05, **FLAGS)
-        bank = np.random.default_rng(13).standard_normal((3, 3, 3, 3)).astype(np.float32)
-        structure = dict(VOCODER, **FLAGS)
-        jsynth = JaxSynthesizer(jcfg, variables, voc_tree, bank,
-                                vocoder_structure=structure)
-        tsynth = Synthesizer(shrink(Config()), variables, voc_tree, bank,
-                             vocoder_structure=structure, device="cpu")
-        yield jsynth, tsynth
-    finally:
-        fa._INTERPRET = False
+    """The JAX package's Synthesizer and the port's over the same weights.
+    The port takes its fused attention and vocoder kernel paths (their plain
+    versions on the CPU); the JAX side takes XLA's attention and the plain
+    generator, which the JAX package's own tests hold equal to its
+    interpret-mode kernels (tests/test_fused_attention.py,
+    tests/test_hifigan_pallas_path.py): compiling those per phone bucket and
+    vocoder shape is not what this file tests."""
+    jcfg = shrink(JaxConfig(), fused=False)
+    _, variables = fs2_variables(jcfg, seed=11)
+    _, voc_tree = vocoder_params(VOCODER, seed=12, scale=0.05)
+    bank = np.random.default_rng(13).standard_normal((3, 3, 3, 3)).astype(np.float32)
+    jsynth = JaxSynthesizer(jcfg, variables, voc_tree, bank, vocoder_structure=VOCODER)
+    tsynth = Synthesizer(shrink(Config()), variables, voc_tree, bank,
+                         vocoder_structure=dict(VOCODER, **FLAGS), device="cpu")
+    assert tsynth.model.encoder.layers[0].attn.fused and tsynth.vocoder.fused_mrf
+    return jsynth, tsynth
 
 
 def _pcm(wav):

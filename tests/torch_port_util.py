@@ -9,6 +9,19 @@ import torch
 
 from emotts_torch.ops.resblock import conv1d_btc
 
+# The tests' JAX references compile at XLA's lowest backend optimization
+# level: the same HLO, so the same operations in the same order, at a
+# fraction of the compile time that dominates these toy sizes.
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def jit(fn, **kwargs):
+    """``jax.jit`` of a JAX reference, compiled with :data:`FAST_COMPILE`."""
+    import jax
+
+    return jax.jit(fn, compiler_options=FAST_COMPILE, **kwargs)
+
+
 SMALL_VOCODER = dict(
     in_channels=8,
     upsample_initial_channel=64,
