@@ -14,10 +14,11 @@ a non-zero exit:
               the shapes its path gives it, with times, roofline bounds,
               bound_fraction (bound / time) and vs_library (time / library
               call's time): attention forward (rate 0, then with dropout) and
-              backward (bf16 on tensor cores at head dim 192, and at 64 and
-              256 for the other instances; fp32 on the FMA units; each with
+              backward (bf16 on wgmma, fp32 on mma.sync as 3xTF32, at head
+              dim 192 and at 64 and 256 for the other instances; each with
               its device time, launches queued behind a sleep kernel, beside
-              the wall time),
+              the wall time, the operations its design does and the tensor
+              rate they imply; SDPA's backward timed straight),
               MRF stage, ResBlock (on the tensor cores, 3xTF32 for fp32;
               each case with its tiles and launches, the operations its
               design does and the tensor rate that implies)
@@ -133,10 +134,13 @@ def device_ms(fn, iters=20):
 
 def with_ratios(case):
     """bound_fraction: the bound's share of the kernel's time (1 = at the
-    bound); vs_library: the kernel's time over the library call's."""
+    bound); vs_library: the kernel's time over the library call's, and
+    vs_library_device the same of their device times where both exist."""
     case["bound_fraction"] = case["bound_ms"] / case["ms"]
     lib = case.get("library_ms")
     case["vs_library"] = case["ms"] / lib if lib else None
+    if case.get("library_device_ms"):
+        case["vs_library_device"] = case["device_ms"] / case["library_device_ms"]
     return case
 
 
@@ -192,7 +196,9 @@ def check_attention(gen, dev):
                                   (torch.bfloat16, 60, 1024, 10, 192),
                                   # the other head dims' tensor-core instances
                                   (torch.bfloat16, 8, 250, 10, 64),
-                                  (torch.bfloat16, 8, 250, 10, 256)):
+                                  (torch.bfloat16, 8, 250, 10, 256),
+                                  (torch.float32, 8, 250, 10, 64),
+                                  (torch.float32, 8, 250, 10, 256)):
         q, k, v = (torch.randn(b, t, h, d, generator=gen).to(dev, dtype)
                    for _ in range(3))
         lens = torch.randint(1, t + 1, (b,), generator=gen)
@@ -207,18 +213,30 @@ def check_attention(gen, dev):
         plain_ms = time_ms(lambda: A.fused_attention_plain(q, k, v, bias), iters)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         mask = bias[:, None, None, :].to(dtype)
-        library_ms = time_ms(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
-            iters)
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+        library_ms = time_ms(sdpa, iters)
+        library_device_ms = device_ms(sdpa)
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
-        bound_ms, by = bound(4 * b * h * t * t * d, peak,
-                             4 * b * t * h * d * q.element_size() + b * t * 4)
+        ops = 4 * b * h * t * t * d
+        bound_ms, by = bound(ops, peak, 4 * b * t * h * d * q.element_size() + b * t * 4)
         cases.append(dict(
             dtype=str(dtype).split(".")[1], shape=[b, t, h, d], max_abs_err=err,
             max_rel_err=rel, tolerance=TOL[dtype], ms=ms, device_ms=dev_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
+            plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_device_ms,
+            bound_ms=bound_ms, bound_by=by, **_attention_design(dtype, ops, dev_ms),
         ))
     return cases
+
+
+def _attention_design(dtype, ops, dev_ms):
+    """What an attention case's design computes on the tensor cores beside
+    the algorithm's ``ops``: fp32 takes three TF32 products a term (3xTF32),
+    bf16 one; tensor_tflops is that work over the kernel's device time."""
+    split = 3 if dtype == torch.float32 else 1
+    return dict(operations=ops, split=split, operations_as_designed=split * ops,
+                tensor_tflops=split * ops / (dev_ms * 1e-3) / 1e12)
 
 
 def _attention_inputs(gen, dev, dtype, b, t, h=2, d=192):
@@ -242,15 +260,18 @@ def check_attention_dropout(gen, dev):
     from emotts_torch.ops import attention as A
 
     cases = []
-    rate, h, d = DROPOUT_RATE, 2, 192
-    for dtype, b, t, iters in ((torch.bfloat16, 16, 512, 5),
-                               (torch.bfloat16, 16, 1024, 3),
-                               (torch.float32, 8, 512, 5),
-                               (torch.float32, 3, 200, 10),
-                               # FastSpeech2's encoder at batch 8 (phone buckets)
-                               (torch.bfloat16, 8, 48, 20),
-                               (torch.bfloat16, 8, 144, 20)):
-        q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t)
+    rate, h = DROPOUT_RATE, 2
+    for dtype, b, t, iters, d in ((torch.bfloat16, 16, 512, 5, 192),
+                                  (torch.bfloat16, 16, 1024, 3, 192),
+                                  (torch.float32, 8, 512, 5, 192),
+                                  (torch.float32, 3, 200, 10, 192),
+                                  # FastSpeech2's encoder at batch 8 (phone buckets)
+                                  (torch.bfloat16, 8, 48, 20, 192),
+                                  (torch.bfloat16, 8, 144, 20, 192),
+                                  # the fp32 instances of the other head dims
+                                  (torch.float32, 8, 250, 10, 64),
+                                  (torch.float32, 8, 250, 10, 256)):
+        q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t, d=d)
         got = A.fused_attention(q, k, v, bias, seeds, rate)
         torch.cuda.synchronize()
         want = A.fused_attention_plain(q, k, v, bias, seeds, rate)
@@ -264,20 +285,22 @@ def check_attention_dropout(gen, dev):
         plain_ms = time_ms(
             lambda: A.fused_attention_plain(q, k, v, bias, seeds, rate), iters)
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
-        bound_ms, by = bound(4 * b * h * t * t * d, peak,
+        ops = 4 * b * h * t * t * d
+        bound_ms, by = bound(ops, peak,
                              4 * b * t * h * d * q.element_size() + b * t * 4 + b * 4)
         cases.append(dict(
             dtype=str(dtype).split(".")[1], shape=[b, t, h, d], rate=rate,
             max_abs_err=err, max_rel_err=rel, tolerance=TOL[dtype], ms=ms,
             device_ms=dev_ms, ms_rate0=ms_rate0, plain_ms=plain_ms, library_ms=None,
-            bound_ms=bound_ms, bound_by=by,
+            bound_ms=bound_ms, bound_by=by, **_attention_design(dtype, ops, dev_ms),
         ))
         del q, k, v, got, want, again
         torch.cuda.empty_cache()
     # With q = k = 0 every probability is 1/T, and with V the identity (T = D)
     # the output is the dropped-out probability matrix itself: the kernel's
     # keep-mask can be read from it and held against the PyTorch Philox.
-    b, t = 4, d
+    b, d = 4, 192
+    t = d
     zeros = torch.zeros(b, t, h, d, device=dev)
     eye = torch.eye(t, device=dev)[None, :, None, :].expand(b, t, h, d).contiguous()
     seeds = torch.tensor([7, -7, 7, 2 ** 31 - 1], dtype=torch.int32, device=dev)
@@ -316,6 +339,8 @@ def check_attention_bwd(gen, dev):
                                   (torch.bfloat16, 16, 1024, 10, 192),
                                   (torch.float32, 8, 512, 3, 192),
                                   (torch.float32, 3, 200, 5, 192),
+                                  # fp32 training's largest bucket at batch 8
+                                  (torch.float32, 16, 1024, 3, 192),
                                   (torch.bfloat16, 128, 320, 10, 192),
                                   (torch.bfloat16, 16, 777, 10, 192),
                                   # FastSpeech2's encoder at batch 8 (phone buckets)
@@ -323,7 +348,9 @@ def check_attention_bwd(gen, dev):
                                   (torch.bfloat16, 8, 144, 20, 192),
                                   # the other head dims' tensor-core instances
                                   (torch.bfloat16, 8, 250, 10, 64),
-                                  (torch.bfloat16, 8, 250, 10, 256)):
+                                  (torch.bfloat16, 8, 250, 10, 256),
+                                  (torch.float32, 8, 250, 5, 64),
+                                  (torch.float32, 8, 250, 5, 256)):
         q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t, d=d)
         dout = torch.randn(b, t, h, d, generator=gen).to(dev, dtype)
         size = q.element_size()
@@ -349,30 +376,37 @@ def check_attention_bwd(gen, dev):
                 q, k, v, bias, seeds, stats, dout, rate))
             plain_ms = time_ms(lambda: A.fused_attention_bwd_plain(
                 q, k, v, bias, dout, seeds, rate), iters)
-            library_ms = None
+            library_ms = library_device_ms = None
             if rate == 0.0:
+                # the library's backward alone: gradients of one retained
+                # forward, taken again and again
                 qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
                               for x in (q, k, v))
                 mask = bias[:, None, None, :].to(dtype)
                 gh = dout.transpose(1, 2)
+                sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
-                def sdpa_fwd():
-                    return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+                def sdpa_bwd():
+                    torch.autograd.grad(sdpa_out, (qh, kh, vh), gh, retain_graph=True)
 
-                def sdpa_both():
-                    torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), gh)
-
-                with torch.no_grad():
-                    fwd_ms = time_ms(sdpa_fwd, iters)
-                library_ms = time_ms(sdpa_both, iters) - fwd_ms
+                library_ms = time_ms(sdpa_bwd, iters)
+                library_device_ms = device_ms(sdpa_bwd)
+                del sdpa_out, qh, kh, vh
+            # the design takes nine T x T x D products where the algorithm
+            # has five (18 against 10 B*H*T^2*D operations), each as three in
+            # fp32
+            design = _attention_design(dtype, 18 * b * h * t * t * d, dev_ms)
             cases.append(dict(
                 dtype=str(dtype).split(".")[1], shape=[b, t, h, d], rate=rate,
                 max_abs_err=max(e[0] for e in errs),
                 max_rel_err=max(e[1] for e in errs), tolerance=TOL[dtype],
                 repeat_equal_bits=True, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=library_ms, library_device_ms=library_device_ms,
+                bound_ms=bound_ms, bound_by=by,
                 operations_algorithm=10 * b * h * t * t * d,
-                operations_as_designed=18 * b * h * t * t * d,
+                products_as_designed=design["operations"], split=design["split"],
+                operations_as_designed=design["operations_as_designed"],
+                tensor_tflops=design["tensor_tflops"],
             ))
             del stats, got
         del q, k, v, dout
@@ -670,8 +704,12 @@ def sweep_phase(cfg, synth):
 def parity_phase(weights):
     """The kernel path against the plain path through the same entry point,
     in fp32 so that durations cannot flip: equal lengths, PCM within a few
-    16-bit steps (summation order through 12 FFT blocks and 4 MRF stages)."""
+    16-bit steps (summation order through 12 FFT blocks and 4 MRF stages).
+    The kernel path's attention launches are all fp32, one per layer of each
+    FastSpeech2 forward."""
     from emotts_torch.infer.synthesize import Synthesizer
+    from emotts_torch.nn.fastspeech2 import FastSpeech2
+    from emotts_torch.ops import attention
 
     fs2_sd, voc_sd, bank = weights
     request = [{"text": "A short line for comparison.", "speaker": 2,
@@ -681,7 +719,19 @@ def parity_phase(weights):
         cfg = full_width_config("float32", kernels)
         synth = Synthesizer(cfg, fs2_sd, voc_sd, bank,
                             vocoder_structure=vocoder_structure(cfg, kernels))
+        if kernels:
+            zero_counts(attention)
+            fs2 = ModuleCounter(FastSpeech2)
         waves[kernels] = synth.synthesize_requests(request)[0]
+        if kernels:
+            fs2.close()
+            f2 = cfg.fastspeech2
+            fp32 = dict(counted=fp32_attention_launches(), expected=expected_fp32_launches(
+                {"fs2": fs2}, {"fs2": f2.enc_num_layers + f2.dec_num_layers}))
+            if (fp32["counted"] != fp32["expected"] or fp32["counted"]["fused_attention"] == 0
+                    or attention.launch_count != fp32["counted"]["fused_attention"]):
+                raise AssertionError(f"fp32 parity path's attention launches {fp32}, "
+                                     f"all launches {attention.launch_count}")
         del synth
     a, b = waves[True], waves[False]
     if a.shape != b.shape or a.size == 0:
@@ -694,7 +744,7 @@ def parity_phase(weights):
         raise AssertionError(f"kernel path differs from plain path by {steps} "
                              f"16-bit steps (limit {limit})")
     return dict(samples=int(a.size), peak=float(np.abs(b).max()),
-                max_pcm_steps=steps, limit_pcm_steps=limit)
+                max_pcm_steps=steps, limit_pcm_steps=limit, fp32_launches=fp32)
 
 
 # --------------------------------------------------------------------------
@@ -784,21 +834,56 @@ class ModuleCounter:
     """Counts forwards of every module of a class (every IntensityExtractor,
     every FastSpeech2), to say how many attention launches to expect;
     ``training_forwards`` are those called with ``deterministic=False``, each
-    followed by one backward in a train step."""
+    followed by one backward in a train step.  ``fp32_forwards`` and
+    ``fp32_training_forwards`` count those of modules that compute in fp32,
+    whose attention takes the kernels' fp32 instances."""
 
     def __init__(self, cls):
         self.forwards = self.training_forwards = 0
+        self.fp32_forwards = self.fp32_training_forwards = 0
 
         def hook(module, args, kwargs, output):
             if isinstance(module, cls):
+                training = kwargs.get("deterministic") is False
+                fp32 = getattr(module, "dtype", None) == torch.float32
                 self.forwards += 1
-                self.training_forwards += kwargs.get("deterministic") is False
+                self.training_forwards += training
+                self.fp32_forwards += fp32
+                self.fp32_training_forwards += fp32 and training
 
         self._hook = torch.nn.modules.module.register_module_forward_hook(
             hook, with_kwargs=True)
 
     def close(self):
         self._hook.remove()
+
+
+def zero_counts(*modules):
+    """Set every launch counter of the kernel modules to 0."""
+    for module in modules:
+        for name in list(vars(module)):
+            if name.endswith("launch_count"):
+                setattr(module, name, 0)
+
+
+def fp32_attention_launches():
+    """The attention kernels' fp32 launches since the counters were set to 0."""
+    from emotts_torch.ops import attention as A
+
+    return dict(fused_attention=A.fp32_launch_count,
+                fused_attention_bwd=A.fp32_bwd_launch_count)
+
+
+def expected_fp32_launches(counters, layers):
+    """The fp32 attention launches that the counted forwards make:
+    ``counters`` and ``layers`` map a name to a ModuleCounter and to the
+    attention layers of one of its forwards."""
+    from emotts_torch.ops import attention as A
+
+    return dict(
+        fused_attention=sum(layers[n] * c.fp32_forwards for n, c in counters.items()),
+        fused_attention_bwd=sum(layers[n] * A.BWD_LAUNCHES_PER_CALL
+                                * c.fp32_training_forwards for n, c in counters.items()))
 
 
 def same_bits(a, b):
@@ -1035,8 +1120,10 @@ def train_parity_phase(root, dev):
         return loss.item(), {n: p.grad.clone()
                              for n, p in trainer.model.named_parameters()}
 
+    layers = cfg.rank_model.n_encoder_layers
     return _kernels_against_plain(step, dict(
-        frames=int(b["emo_x"].shape[1]), rows=int(2 * b["emo_x"].shape[0])))
+        frames=int(b["emo_x"].shape[1]), rows=int(2 * b["emo_x"].shape[0])),
+        dict(fused_attention=layers, fused_attention_bwd=2 * layers))
 
 
 def _worst_gradient(grads, ref):
@@ -1058,10 +1145,12 @@ def _worst_gradient(grads, ref):
     return worst, worst_name
 
 
-def _kernels_against_plain(step, info, relu_gates=False):
+def _kernels_against_plain(step, info, launches, relu_gates=False):
     """Run ``step`` (→ loss, {name: gradient}) through the kernels, then with
     the plain forward and backward put in their place, and hold the two to
     the fp32 tolerances below (both sides fp32, other summation orders).
+    ``launches``: the attention launches of the kernel step, every one of
+    them an fp32 instance's.
 
     ``relu_gates``: the model gates with ReLUs (FastSpeech2's convolutions),
     so a forward that differs at the rounding level can flip a gate at a
@@ -1073,10 +1162,13 @@ def _kernels_against_plain(step, info, relu_gates=False):
     all-plain step's are reported, and its loss held at 1e-5."""
     from emotts_torch.ops import attention as A
 
-    before = A.launch_count, A.bwd_launch_count
+    zero_counts(A)
     loss_k, grads_k = step()
-    if (A.launch_count, A.bwd_launch_count) == before:
-        raise AssertionError("the kernel step launched no kernel")
+    fp32 = dict(counted=fp32_attention_launches(), expected=launches)
+    if fp32["counted"] != launches or (A.launch_count, A.bwd_launch_count) != (
+            launches["fused_attention"], launches["fused_attention_bwd"]):
+        raise AssertionError(f"the kernel step's attention launches: {fp32}, all "
+                             f"{A.launch_count} and {A.bwd_launch_count}")
 
     def plain_forward(q, k, v, bias, seeds=None, rate=0.0, want_stats=False):
         return A.fused_attention_plain(q, k, v, bias, seeds, rate), None
@@ -1098,7 +1190,8 @@ def _kernels_against_plain(step, info, relu_gates=False):
         raise AssertionError("the plain step launched a kernel")
     loss_rtol, grad_rtol = 1e-5, 1e-3
     worst_all, worst_all_name = _worst_gradient(grads_k, grads_p)
-    out = dict(**info, loss_kernels=loss_k, loss_plain=loss_p, loss_rtol=loss_rtol,
+    out = dict(**info, fp32_launches=fp32, loss_kernels=loss_k, loss_plain=loss_p,
+               loss_rtol=loss_rtol,
                parameters=len(grads_k), worst_gradient_difference=worst_all,
                worst_at=worst_all_name, gradient_rtol_of_largest_entry=grad_rtol)
     worst, worst_name = worst_all, worst_all_name
@@ -1288,9 +1381,13 @@ def fs2_parity_phase(root, rank_exp, dev):
         return loss.item(), {n: p.grad.clone()
                              for n, p in trainer.model.named_parameters()}
 
+    f2 = cfg.fastspeech2
+    fs2_layers = f2.enc_num_layers + f2.dec_num_layers
     return _kernels_against_plain(step, dict(
         frames=int(b["mel"].shape[1]), phones=int(b["phonemes"].shape[1]),
-        rows=int(b["mel"].shape[0])), relu_gates=True)
+        rows=int(b["mel"].shape[0])),
+        dict(fused_attention=fs2_layers + cfg.rank_model.n_encoder_layers,
+             fused_attention_bwd=2 * fs2_layers), relu_gates=True)
 
 
 def vocoder_npz(voc_sd, path):
@@ -1384,7 +1481,7 @@ def stream_phase(root, fs2_exp, rank_exp, voc_sd, dev):
         return ttfa, time.perf_counter() - t0, samples
 
     run_once()  # warm: allocator, cuDNN choices for every window shape
-    attention.launch_count = mrf.launch_count = resblock.launch_count = 0
+    zero_counts(attention, mrf, resblock)
     counter = ForwardCounter(synth)
     runs = [run_once() for _ in range(10)]
     counter.close()
@@ -1399,7 +1496,7 @@ def stream_phase(root, fs2_exp, rank_exp, voc_sd, dev):
     totals = sorted(r[1] for r in runs)
 
     # the HTTP path, counted with the serving counters' rule
-    attention.launch_count = mrf.launch_count = resblock.launch_count = 0
+    zero_counts(attention, mrf, resblock)
     counter = ForwardCounter(synth)
     httpd = make_server(cfg, synth, port=0, device=dev.type)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -1454,15 +1551,15 @@ def fs2_phases(root, rank_exp, voc_sd, dev):
     """Phases 12-14 on the corpus under ``root`` and the rank experiment
     ``rank_exp``: FS2 training (its attention launches counted against the
     forwards that make them), the FS2 train parity, and the streamed path
-    (counted likewise).  Returns the FS2 experiment and the two paths'
-    launch counts."""
+    (counted likewise).  Returns the FS2 experiment, the two paths' launch
+    counts, and the fp32 attention launches of the three phases."""
     from emotts_torch.nn.fastspeech2 import FastSpeech2
     from emotts_torch.nn.intensity import IntensityExtractor
     from emotts_torch.ops import attention
 
     t0 = time.perf_counter()
     fs2_cfg = fs2_config(root)
-    attention.launch_count = attention.bwd_launch_count = 0
+    zero_counts(attention)
     extractor, fs2_forwards = ModuleCounter(IntensityExtractor), ModuleCounter(FastSpeech2)
     fs2_exp, fs2_trained = fs2_train_phase(fs2_cfg, rank_exp, dev)
     extractor.close()
@@ -1476,13 +1573,18 @@ def fs2_phases(root, rank_exp, voc_sd, dev):
         + fs2_cfg.rank_model.n_encoder_layers * extractor.forwards,
         fused_attention_bwd=fs2_layers * attention.BWD_LAUNCHES_PER_CALL
         * fs2_forwards.training_forwards)
-    if fs2_launches != fs2_expected or min(fs2_launches.values()) == 0:
-        raise AssertionError(f"launch counters {fs2_launches}, expected {fs2_expected}")
+    fp32 = dict(counted=fp32_attention_launches(), expected=expected_fp32_launches(
+        {"fs2": fs2_forwards, "extractor": extractor},
+        {"fs2": fs2_layers, "extractor": fs2_cfg.rank_model.n_encoder_layers}))
+    if (fs2_launches != fs2_expected or min(fs2_launches.values()) == 0
+            or fp32["counted"] != fp32["expected"]):
+        raise AssertionError(f"launch counters {fs2_launches}, expected {fs2_expected}; "
+                             f"fp32 {fp32}")
     emit("fs2_train", seconds=time.perf_counter() - t0, **fs2_trained,
          launches=dict(counted=fs2_launches, expected=fs2_expected,
                        fs2_forwards=fs2_forwards.forwards,
                        fs2_train_steps=fs2_forwards.training_forwards,
-                       extractor_forwards=extractor.forwards))
+                       extractor_forwards=extractor.forwards, fp32=fp32))
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1491,8 +1593,12 @@ def fs2_phases(root, rank_exp, voc_sd, dev):
 
     t0 = time.perf_counter()
     stream_launches, streamed = stream_phase(root, fs2_exp, rank_exp, voc_sd, dev)
+    # the streamed request's, counted from 0 before it
+    streamed["http"]["fp32_launches"] = fp32_attention_launches()
     emit("stream", seconds=time.perf_counter() - t0, **streamed)
-    return fs2_exp, fs2_launches, stream_launches
+    return fs2_exp, fs2_launches, stream_launches, dict(
+        fs2_training=fp32["counted"], fs2_train_parity=parity["fp32_launches"]["counted"],
+        streaming=streamed["http"]["fp32_launches"])
 
 
 # --------------------------------------------------------------------------
@@ -1752,7 +1858,7 @@ def evaluate_phase(cfg, fs2_exp, rank_exp, dev):
 
     cfg.fastspeech2.fused_attention = cfg.rank_model.fused_attention = True
     bank = np.load(os.path.join(rank_exp, "intensity.npy"))
-    attention.launch_count = mrf.launch_count = resblock.launch_count = 0
+    zero_counts(attention, mrf, resblock)
     counters = dict(fs2=ModuleCounter(FastSpeech2),
                     extractor=ModuleCounter(IntensityExtractor),
                     generator=ModuleCounter(HiFiGANGenerator))
@@ -1797,6 +1903,7 @@ def evaluate_phase(cfg, fs2_exp, rank_exp, dev):
                     fused_mrf_stage=mrf.launch_count,
                     fused_resblock1=resblock.launch_count)
     forwards = {name: c.forwards for name, c in counters.items()}
+    fp32_forwards = {name: c.fp32_forwards for name, c in counters.items()}
     for c in counters.values():
         c.close()
     with open(sweep_path) as f:
@@ -1819,6 +1926,14 @@ def evaluate_phase(cfg, fs2_exp, rank_exp, dev):
         fused_resblock1=per_resblock * forwards["generator"])
     if launches != expected or min(launches.values()) == 0:
         raise AssertionError(f"evaluation launches {launches}, expected {expected}")
+    # the evaluator's and the scorer's models are fp32, the sweep's
+    # Synthesizer bf16
+    fp32 = dict(counted=fp32_attention_launches(), expected=expected_fp32_launches(
+        {"fs2": counters["fs2"], "extractor": counters["extractor"]},
+        {"fs2": f2.enc_num_layers + f2.dec_num_layers,
+         "extractor": cfg.rank_model.n_encoder_layers}))
+    if fp32["counted"] != fp32["expected"] or fp32["counted"]["fused_attention"] == 0:
+        raise AssertionError(f"evaluation's fp32 attention launches {fp32}")
 
     # the kernels' eval forward against the all-plain one, uncounted
     plain_cfg = copy.deepcopy(cfg)
@@ -1848,6 +1963,7 @@ def evaluate_phase(cfg, fs2_exp, rank_exp, dev):
             emotion_silhouette_h=written["emotion_silhouette_h"],
             verdict=written["verdict"]),
         launches=dict(counted=launches, expected=expected, forwards=forwards,
+                      fp32=fp32, fp32_forwards=fp32_forwards,
                       mrf_launches_per_generator_forward=per_mrf,
                       resblock_launches_per_generator_forward=per_resblock),
         kernels_vs_plain=dict(
@@ -1909,7 +2025,7 @@ def main():
     weights = seeded_weights(cfg)
     synth = Synthesizer(cfg, weights[0], weights[1], weights[2],
                         vocoder_structure=vocoder_structure(cfg))
-    attention.launch_count = mrf.launch_count = resblock.launch_count = 0
+    zero_counts(attention, mrf, resblock)
     counter = ForwardCounter(synth)
     health, served = serve_phase(cfg, synth)
     emit("serve", health=health, requests=served)
@@ -1917,6 +2033,7 @@ def main():
     launches = dict(fused_attention=attention.launch_count,
                     fused_mrf_stage=mrf.launch_count,
                     fused_resblock1=resblock.launch_count)
+    fp32_by_path = dict(serving=fp32_attention_launches())  # bf16: none
     counter.close()
 
     f2 = cfg.fastspeech2
@@ -1940,14 +2057,16 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 7. parity -----------------------------------------------------------
-    emit("parity", **parity_phase(weights))
+    parity = parity_phase(weights)
+    emit("parity", **parity)
+    fp32_by_path["parity"] = parity["fp32_launches"]["counted"]
 
     # -- 8-10. training, then bucketization, counted ---------------------------
     with tempfile.TemporaryDirectory(prefix="emotts_smoke_") as root:
         rank_cfg = rank_config(root)
         emit("corpus", seed=SEED, **make_rank_corpus(
             rank_cfg.data.preprocessed_path, rank_cfg, SEED))
-        attention.launch_count = attention.bwd_launch_count = 0
+        zero_counts(attention)
         extractor = ModuleCounter(IntensityExtractor)
         exp, trained = train_phase(rank_cfg, dev)
         emit("train", **trained)
@@ -1963,21 +2082,35 @@ def main():
             fused_attention=layers * extractor.forwards,
             fused_attention_bwd=layers * attention.BWD_LAUNCHES_PER_CALL * train_steps,
         )
+        # bucketize builds the rank model in fp32; training is bf16
+        fp32_steps = train_steps if rank_cfg.train_rank.compute_dtype == "float32" else 0
+        train_fp32 = dict(counted=fp32_attention_launches(), expected=dict(
+            fused_attention=layers * extractor.fp32_forwards,
+            fused_attention_bwd=layers * attention.BWD_LAUNCHES_PER_CALL * fp32_steps))
         emit("train_launches", counted=train_launches, expected=train_expected,
              extractor_forwards=extractor.forwards, train_steps=train_steps,
-             cuda_launches_per_backward_call=attention.BWD_LAUNCHES_PER_CALL)
+             cuda_launches_per_backward_call=attention.BWD_LAUNCHES_PER_CALL,
+             fp32=train_fp32, extractor_fp32_forwards=extractor.fp32_forwards)
         if train_launches != train_expected or min(train_launches.values()) == 0:
             raise AssertionError(
                 f"launch counters {train_launches}, expected {train_expected}")
+        if (train_fp32["counted"] != train_fp32["expected"]
+                or train_fp32["counted"]["fused_attention"] == 0):
+            raise AssertionError(f"fp32 launches of training and bucketize {train_fp32}")
+        fp32_by_path["training"] = train_fp32["counted"]
         emit("serve_with_bank", **serve_with_bank(weights, bank))
         emit("train_profile", **train_profile_phase(rank_cfg, dev))
         torch.cuda.empty_cache()
 
         # -- 11. train parity ---------------------------------------------------
-        emit("train_parity", **train_parity_phase(root, dev))
+        train_parity = train_parity_phase(root, dev)
+        emit("train_parity", **train_parity)
+        fp32_by_path["train_parity"] = train_parity["fp32_launches"]["counted"]
 
         # -- 12-14. FastSpeech2 training, its parity, streamed serving ---------
-        fs2_exp, fs2_launches, stream_launches = fs2_phases(root, exp, weights[1], dev)
+        fs2_exp, fs2_launches, stream_launches, fs2_fp32 = fs2_phases(
+            root, exp, weights[1], dev)
+        fp32_by_path.update(fs2_fp32)
         torch.cuda.empty_cache()
 
         # -- 15-16. raw audio to features on the card, then evaluation ---------
@@ -1988,6 +2121,7 @@ def main():
         t0 = time.perf_counter()
         eval_launches, evaluated = evaluate_phase(eval_cfg, fs2_exp, exp, dev)
         emit("evaluate", seconds=time.perf_counter() - t0, **evaluated)
+        fp32_by_path["evaluation"] = evaluated["launches"]["fp32"]["counted"]
 
     # -- summary ---------------------------------------------------------------
     # a kernel's launches over the counted paths
@@ -2006,6 +2140,11 @@ def main():
         "fused_mrf_stage": lambda c: c["dtype"] == "float32" and c["shape"][1:] == [65536, 128],
         "fused_resblock1": lambda c: (c["dtype"] == "float32" and c["k"] == 11
                                       and c["shape"][1] == 8192),
+    }
+    fp32_headline = {  # fp32's largest evaluation and training cases
+        "fused_attention": lambda c: c["dtype"] == "float32" and c["shape"] == [8, 1024, 2, 192],
+        "fused_attention_bwd": lambda c: (c["dtype"] == "float32" and c["rate"] == 0.0
+                                          and c["shape"] == [8, 512, 2, 192]),
     }
     meta = {
         "fused_attention": ("emotts_torch/csrc/attention.cu", "emotts/ops/attention.py:161"),
@@ -2033,6 +2172,16 @@ def main():
             at=dict(dtype=head["dtype"], shape=head["shape"]),
         ))
         with_ratios(kernels[-1])
+        if name in fp32_headline:
+            # the fp32 instance's own case and launches, beside the headline's
+            c = next(c for c in cases[name] if fp32_headline[name](c))
+            fp32 = {key: c[key] for key in (
+                "ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
+                "bound_by", "bound_fraction", "vs_library", "vs_library_device",
+                "tensor_tflops")}
+            kernels[-1]["fp32"] = dict(
+                **fp32, at=dict(shape=c["shape"], rate=c.get("rate", 0.0)),
+                launches_by_path={path: counts[name] for path, counts in fp32_by_path.items()})
     emit("done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -44,9 +44,39 @@
 //    same phases at the same time, so the exponentials, the rescaling of O
 //    and, with dropout, Philox are not hidden behind the products; their
 //    share is what separates this kernel from its bound.
-// fp32: `attention_fwd_kernel`, on the fp32 FMA units (one block per 64
-// queries, 64-key tiles, scores through shared memory).  TF32 would change
-// the numbers the fp32 comparisons hold to 2e-4; a 3xTF32 split is open.
+// fp32: `attention_fwd_f32_kernel`, on the tensor cores (mma.sync.m16n8k8
+// with TF32 operands, sm_80 and later; helpers in common.cuh and
+// attention_common.cuh).  One TF32 product a term misses the fp32 tolerance
+// of 2e-4 (errors of 6e-4 to 1e-3), so every product is 3xTF32: each operand
+// is split as its fragment is loaded into hi = tf32(v) and lo = tf32(v - hi)
+// and lo*hi + hi*lo + hi*hi is accumulated in fp32 (common.cuh), within a
+// few 1e-6 of an fp32 product.  What bounds it: operations, and the design
+// does three TF32 products for each the bound counts, so bound / time stays
+// under 1/3.
+//  - Tiles: a block is 128 queries of one (query tile, head, batch), 8 warps
+//    of 16 query rows; or 64 queries and 4 warps where those blocks fit in
+//    one wave of the card's SMs, where T <= 64, and at D = 256
+//    (`launch_attention_f32_tiles`).  K and V come in
+//    tiles of 32 keys, double-buffered by 16-byte cp.async (rows beyond T
+//    zero-filled), with the bias of each tile; one __syncthreads a tile
+//    hands a stage back.  Every tile is fp32 at a row stride of D + 4
+//    floats, so the fragment loads of a warp (lane (g, t) at row g, column
+//    t, or at row 2t, column g) hit 32 different banks.
+//  - Per tile and warp: S = Q K^T is 16 x 32 (4 n8 tiles, D / 8 k-steps),
+//    its A fragments read from Q in shared memory and split at load.  The
+//    online softmax runs on S's accumulator registers (a row's keys sit in
+//    one quad of lanes).  O += P V needs P as an A fragment: the C fragment
+//    gives thread (g, t) keys 2t and 2t + 1 of each n8 tile, where the A
+//    layout wants t and t + 4; the sum over keys does not depend on their
+//    order, so V's rows are read in the C fragment's order (A slot t is key
+//    2t, slot t + 4 key 2t + 1) and P goes from its accumulator into the A
+//    fragment, split, without a shuffle or shared memory.  O is 16 x D fp32
+//    a warp: 96 registers a thread at D = 192, 128 at D = 256.
+//  - Shared memory: Q (128 or 64 x (D + 4)), two stages of K and V (32 x
+//    (D + 4)) and their bias: 200,960 bytes at D = 192 (150,784 for 64
+//    queries), 199,936 at D = 256; one block an SM.  Registers at D = 192
+//    (tools/profile_attention_f32.py prints ptxas' report): 201 a thread,
+//    209 with dropout, no spills.
 //
 // Bias and padding.  The bias is additive and finite on purpose: a row whose
 // keys are all padded has every score rounded to -1e9 in fp32 and comes out
@@ -60,9 +90,10 @@
 // normalised P until the end, so the un-normalised exp(s - m) is rounded
 // instead (the row sum stays fp32 and un-rounded) and O is divided by the
 // row sum at the end.  The two differ by at most one bf16 rounding of each
-// probability; in fp32 nothing is rounded and the results agree to ~1e-6.
-// The bf16 kernel's exp is the hardware's ex2 (a few ulp of fp32, far below
-// a bf16 step).
+// probability; in fp32 nothing is rounded, and the 3xTF32 products keep the
+// results within about 1e-5 of the plain version.  The bf16 kernel's exp is
+// the hardware's ex2 (a few ulp of fp32, far below a bf16 step), the fp32
+// kernel's expf.
 //
 // Dropout.  The keep-mask is a pure function of (seed[b], head, query, key):
 // Philox4x32-10 keyed by the reference's per-(example, head) mix of the seed,
@@ -87,194 +118,6 @@
 
 namespace emotts {
 
-constexpr int kBQ = 64;  // queries per block
-constexpr int kBK = 64;  // keys per tile
-
-template <typename T>
-size_t attn_smem_bytes(int D) {
-  const int ld = D + attn_row_pad<T>();
-  return (size_t)(kBQ * ld + kBK * ld + kBK * D) * sizeof(T) +
-         (size_t)(kBQ * kBK + kBK) * sizeof(float);
-}
-
-template <typename T, int DJ, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     const int* __restrict__ seeds, T* __restrict__ out,
-                     float* __restrict__ stats, int Tlen, int H, float scale,
-                     uint32_t thresh, float inv_keep) {
-  constexpr int D = DJ * 32;
-  constexpr int LD = D + attn_row_pad<T>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);        // kBQ x LD
-  T* sK = sQ + kBQ * LD;                         // kBK x LD
-  T* sV = sK + kBK * LD;                         // kBK x D
-  float* sS = reinterpret_cast<float*>(sV + kBK * D);  // kBQ x kBK
-  float* sBias = sS + kBQ * kBK;                 // kBK
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long row_stride = (long long)H * D;
-  const long long base = ((long long)b * Tlen) * row_stride + (long long)h * D;
-
-  // Q tile (rows beyond T are zero and never written back)
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    const int t = q0 + r;
-    sQ[r * LD + d] = t < Tlen ? q[base + (long long)t * row_stride + d]
-                              : from_float<T>(0.f);
-  }
-
-  // phase-1 mapping: 16 x 16 threads, each a 4 x 4 patch of the score tile
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  // phase-2/3 mapping: warp w owns query rows 8w .. 8w+7, lane owns depth
-  // lane + 32 j
-  float m_run[8], l_run[8], acc[8][DJ];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[r][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Tlen; k0 += kBK) {
-    __syncthreads();  // the previous tile's sK, sV, sS are no longer read
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, d = e - r * D;
-      const int t = k0 + r;
-      const bool ok = t < Tlen;
-      const long long g = base + (long long)t * row_stride + d;
-      sK[r * LD + d] = ok ? k[g] : from_float<T>(0.f);
-      sV[r * D + d] = ok ? v[g] : from_float<T>(0.f);
-    }
-    if (tid < kBK) {
-      const int t = k0 + tid;
-      sBias[tid] = t < Tlen ? bias[(long long)b * Tlen + t] : 0.f;
-    }
-    __syncthreads();
-
-    // ---- phase 1: S = Q K^T * scale + bias --------------------------------
-    {
-      float s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = to_float(sQ[(4 * ty + i) * LD + d]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = to_float(sK[(tx + 16 * j) * LD + d]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kk = tx + 16 * j;
-        const bool ok = (k0 + kk) < Tlen;
-        const float bj = sBias[kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // same order as the reference: (dot * scale) + bias
-          const float sv = s[i][j] * scale + bj;
-          sS[(4 * ty + i) * kBK + kk] = ok ? sv : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- phase 2: online softmax on this warp's 8 rows ---------------------
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      float* srow = sS + (8 * warp + r) * kBK;
-      const float s0 = srow[lane];
-      const float s1 = srow[lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      // key 0 of the first tile is always inside T and every bias is finite,
-      // so m_new is finite from the first tile on
-      const float m_new = fmaxf(m_run[r], mx);
-      const float alpha = expf(m_run[r] - m_new);
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l_run[r] = l_run[r] * alpha + sum;
-      m_run[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[r][j] *= alpha;
-      // probabilities enter P V in the compute type
-      srow[lane] = to_float(from_float<T>(p0));
-      srow[lane + 32] = to_float(from_float<T>(p1));
-    }
-    if constexpr (DROP) {
-      // this warp's 8 rows x 64 keys are 128 groups of 4 keys, 4 per lane
-      __syncwarp();
-      const uint32_t key = dropout_key(seeds[b], h);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int g = lane + 32 * i;
-        const int r = g >> 4, c4 = g & 15;
-        const uint4 bits = dropout_bits(key, (uint32_t)(q0 + 8 * warp + r),
-                                        (uint32_t)((k0 >> 2) + c4));
-        float* p4 = sS + (8 * warp + r) * kBK + 4 * c4;
-        // kept values are scaled after the cast to the compute type
-        p4[0] = bits.x >= thresh ? to_float(from_float<T>(p4[0] * inv_keep)) : 0.f;
-        p4[1] = bits.y >= thresh ? to_float(from_float<T>(p4[1] * inv_keep)) : 0.f;
-        p4[2] = bits.z >= thresh ? to_float(from_float<T>(p4[2] * inv_keep)) : 0.f;
-        p4[3] = bits.w >= thresh ? to_float(from_float<T>(p4[3] * inv_keep)) : 0.f;
-      }
-    }
-    __syncwarp();
-
-    // ---- phase 3: O += P V --------------------------------------------------
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; ++kk) {
-      float vv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = to_float(sV[kk * D + lane + 32 * j]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float p = sS[(8 * warp + r) * kBK + kk];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[r][j] = fmaf(p, vv[j], acc[r][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int t = q0 + 8 * warp + r;
-    if (t < Tlen) {
-      const float inv = 1.f / l_run[r];
-      T* orow = out + base + (long long)t * row_stride;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j)
-        orow[lane + 32 * j] = from_float<T>(acc[r][j] * inv);
-      if (stats != nullptr && lane == 0) {
-        const long long row = ((long long)b * H + h) * Tlen + t;
-        stats[row] = m_run[r];
-        stats[(long long)gridDim.z * H * Tlen + row] = l_run[r];
-      }
-    }
-  }
-}
-
 struct FwdArgs {
   const void *q, *k, *v;
   const float* bias;
@@ -287,38 +130,221 @@ struct FwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int DJ, bool DROP>
-int launch_attention(const FwdArgs& a) {
-  constexpr int D = DJ * 32;
-  const int B = a.B, Tlen = a.T, H = a.H;
-  const size_t smem = attn_smem_bytes<T>(D);
-  if (smem > (size_t)kMaxSmemBytes) return kErrSharedMemory;
-  auto kern = attention_fwd_kernel<T, DJ, DROP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tlen + kBQ - 1) / kBQ, H, B);
-  const float scale = 1.0f / sqrtf((float)D);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.bias, a.seeds, static_cast<T*>(a.out),
-      a.stats, Tlen, H, scale, a.thresh, a.inv_keep);
-  return (int)cudaGetLastError();
-}
+// ---------------------------------------------------------------------------
+// fp32 on the tensor cores (mma.sync, 3xTF32)
+// ---------------------------------------------------------------------------
 
-template <typename T, bool DROP>
-int dispatch_attention(const FwdArgs& a, int D) {
-  switch (D) {
-    case 32: return launch_attention<T, 1, DROP>(a);
-    case 64: return launch_attention<T, 2, DROP>(a);
-    case 96: return launch_attention<T, 3, DROP>(a);
-    case 128: return launch_attention<T, 4, DROP>(a);
-    case 192: return launch_attention<T, 6, DROP>(a);
-    case 256: return launch_attention<T, 8, DROP>(a);
-    default: return kErrUnsupportedShape;
+template <int D, int BQ_>
+struct FwdF32 {
+  static constexpr int BQ = BQ_;                 // queries per block, 16 a warp
+  static constexpr int THREADS = 2 * BQ;         // BQ / 16 warps
+  static constexpr int BK = 32;                  // keys per tile
+  static constexpr int LD = F32Tile<D>::LD;
+  static constexpr int NT = D / 8;               // n8 tiles of a row of O
+  static constexpr int Q_FLOATS = BQ * LD;
+  static constexpr int KV_FLOATS = BK * LD;      // one K or V tile
+  // Q; stage s: K at 2s, V at 2s + 1 (in KV tiles); the bias of stage s
+  static constexpr int BIAS = Q_FLOATS + 4 * KV_FLOATS;
+  static constexpr int SMEM = (BIAS + 2 * BK) * 4;
+};
+
+template <int D, int BQ, bool DROP>
+__global__ void __launch_bounds__(FwdF32<D, BQ>::THREADS, 1)
+attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ bias,
+                         const int* __restrict__ seeds, float* __restrict__ out,
+                         float* __restrict__ stats, int Tlen, int H, float scale,
+                         uint32_t thresh, float inv_keep) {
+  using C = FwdF32<D, BQ>;
+  constexpr int LD = C::LD, BK = C::BK, NT = C::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sKV = sQ + C::Q_FLOATS;
+  const float* sBias = sQ + C::BIAS;
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int q0 = blockIdx.x * C::BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long row_stride = (long long)H * D;
+  const long long base = (long long)b * Tlen * row_stride + (long long)h * D;
+  const float* bias_b = bias + (long long)b * Tlen;
+  const int nkt = (Tlen + BK - 1) / BK;
+  const int row0 = q0 + 16 * warp + g;  // this thread's rows row0, row0 + 8
+  const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
+
+  // K, V and the bias of tile j into stage s, one cp.async group
+  auto load_kv = [&](int j, int s) {
+    float* sK = sKV + 2 * s * C::KV_FLOATS;
+    copy_rows_f32<D, BK, C::THREADS>(sK, k + base, row_stride, j * BK, Tlen, tid);
+    copy_rows_f32<D, BK, C::THREADS>(sK + C::KV_FLOATS, v + base, row_stride,
+                                     j * BK, Tlen, tid);
+    copy_floats(wg::smem_addr(sBias + s * BK), bias_b, j * BK, BK, Tlen, tid);
+    cp_async_commit_group();
+  };
+  copy_rows_f32<D, C::BQ, C::THREADS>(sQ, q + base, row_stride, q0, Tlen, tid);
+  load_kv(0, 0);  // one group with Q
+
+  float o[NT][4];
+#pragma unroll
+  for (int c = 0; c < NT; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const float* qa = sQ + (16 * warp + g) * LD + t;
+
+  for (int j = 0; j < nkt; ++j) {
+    const int s = j & 1, k0 = j * BK;
+    cp_async_wait_group<0>();  // this thread's copies of tile j
+    __syncthreads();           // everyone's; tile j - 1 is done with
+    if (j + 1 < nkt) load_kv(j + 1, s ^ 1);
+    const float* sK = sKV + 2 * s * C::KV_FLOATS;
+    const float* sV = sK + C::KV_FLOATS;
+
+    // S = Q K^T: 16 x 32 a warp, row g in sc[n][0..1], row g + 8 in [2..3]
+    float sc[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    mma_abt<D, BK / 8>(sc, qa, sK + g * LD + t);
+
+    // scale and bias in the reference's order; only the last tile has key
+    // slots beyond T
+    const bool full = k0 + BK <= Tlen;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        const float bj = sBias[s * BK + col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& x = sc[n][2 * r + e];
+          x = __fadd_rn(__fmul_rn(x, scale), bj);
+          if (!full && k0 + col >= Tlen) x = -INFINITY;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key 0 of the first tile is always inside T and every bias is finite,
+      // so the maximum is finite from the first tile on
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+    // P = exp(s - m) straight into the split A fragments of O += P V: keys
+    // 8n + 2t, +1 of row g (g + 8) are slots t, t + 4 of k-step n, i.e.
+    // fragment registers 0, 2 (1, 3)
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint4 w = make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (DROP)
+          // keys 8n + 2t, +1 are words 2(t & 1), +1 of group k0/4 + 2n + t/2
+          w = dropout_bits(key, (uint32_t)(row0 + 8 * r),
+                           (uint32_t)((k0 >> 2) + 2 * n + (t >> 1)));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = expf(sc[n][2 * r + e] - m_run[r]);
+          psum[r] += p;  // a dropped entry still counts in the row sum
+          if constexpr (DROP) {
+            const uint32_t word = (t & 1) ? (e ? w.w : w.z) : (e ? w.y : w.x);
+            p = word >= thresh ? p * inv_keep : 0.f;
+          }
+          split_tf32<true>(p, ph[n][r + 2 * e], pl[n][r + 2 * e]);
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + psum[r];
+    }
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      o[c][0] *= alpha[0];
+      o[c][1] *= alpha[0];
+      o[c][2] *= alpha[1];
+      o[c][3] *= alpha[1];
+    }
+
+    // O += P V, V's rows read in the order of P's C fragment
+    mma_pb<D, BK / 8>(o, ph, pl, sV + 2 * t * LD + g);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < Tlen) {
+      const float inv = 1.f / l_run[r];
+      float* orow = out + base + (long long)row * row_stride + 2 * t;
+#pragma unroll
+      for (int c = 0; c < NT; ++c)
+        *reinterpret_cast<float2*>(orow + 8 * c) =
+            make_float2(o[c][2 * r] * inv, o[c][2 * r + 1] * inv);
+      if (stats != nullptr && t == 0) {
+        const long long st = ((long long)b * H + h) * Tlen + row;
+        stats[st] = m_run[r];
+        stats[(long long)gridDim.z * H * Tlen + st] = l_run[r];
+      }
+    }
   }
 }
 
+// static: each library keeps its own record of the attribute it set
+template <int D, int BQ, bool DROP>
+static int launch_attention_f32(const FwdArgs& a) {
+  using C = FwdF32<D, BQ>;
+  static_assert(C::SMEM <= kMaxSmemBytes, "forward tile does not fit");
+  auto kern = attention_fwd_f32_kernel<D, BQ, DROP>;
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = set_max_dynamic_smem(kern, C::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.T + C::BQ - 1) / C::BQ, a.H, a.B);
+  const float scale = 1.0f / sqrtf((float)D);
+  kern<<<grid, C::THREADS, C::SMEM, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.bias, a.seeds, static_cast<float*>(a.out),
+      a.stats, a.T, a.H, scale, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
+// A block takes one SM either way, for its shared memory.  64 queries a
+// block (4 warps) where those blocks fit in one wave of the card's SMs, or
+// where T <= 64 (a 128-query tile would be half padding); else 128 (8 warps:
+// a 64-query block of 4 warps takes much more than half a 128-query block's
+// time, so two waves of them lose to one wave of 128-query blocks).  At
+// D = 256 a 128-query tile does not fit.
+template <int D, bool DROP>
+static int launch_attention_f32_tiles(const FwdArgs& a) {
+  if constexpr (D <= 192) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (a.T > 64 && (long long)((a.T + 63) / 64) * a.H * a.B > sms)
+      return launch_attention_f32<D, 128, DROP>(a);
+  }
+  return launch_attention_f32<D, 64, DROP>(a);
+}
+
+template <bool DROP>
+int dispatch_attention_f32(const FwdArgs& a, int D) {
+  switch (D) {
+    case 32: return launch_attention_f32_tiles<32, DROP>(a);
+    case 64: return launch_attention_f32_tiles<64, DROP>(a);
+    case 96: return launch_attention_f32_tiles<96, DROP>(a);
+    case 128: return launch_attention_f32_tiles<128, DROP>(a);
+    case 192: return launch_attention_f32_tiles<192, DROP>(a);
+    case 256: return launch_attention_f32_tiles<256, DROP>(a);
+    default: return kErrUnsupportedShape;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -571,8 +597,8 @@ int dispatch_attention_tc(const FwdArgs& a, int D) {
 
 }  // namespace emotts
 
-// q, k, v, out: contiguous (B, T, H, D) in fp32 (is_bf16 = 0) or bf16 (1,
-// 16-byte aligned); bias: contiguous (B, T) fp32.  D in {32, 64, 96, 128,
+// q, k, v, out: contiguous, 16-byte aligned (B, T, H, D) in fp32 (is_bf16 =
+// 0) or bf16 (1); bias: contiguous (B, T) fp32.  D in {32, 64, 96, 128,
 // 192, 256}.  drop != 0 applies dropout: seeds (B,) int32, an entry kept where
 // its random word >= thresh and scaled by inv_keep; with drop == 0 seeds may
 // be null.  stats: null, or (2, B, H, T) fp32 to receive each row's maximum
@@ -589,11 +615,10 @@ extern "C" int emotts_attention_fwd(const void* q, const void* k, const void* v,
   if (drop && seeds == nullptr) return emotts::kErrUnsupportedShape;
   const emotts::FwdArgs a{q, k, v, bias, seeds, out, stats, B, T, H, thresh,
                           inv_keep, static_cast<cudaStream_t>(stream)};
-  if (is_bf16) {
-    if (!emotts::aligned16({q, k, v, out})) return emotts::kErrMisaligned;
+  if (!emotts::aligned16({q, k, v, out})) return emotts::kErrMisaligned;
+  if (is_bf16)
     return drop ? emotts::dispatch_attention_tc<true>(a, D)
                 : emotts::dispatch_attention_tc<false>(a, D);
-  }
-  return drop ? emotts::dispatch_attention<float, true>(a, D)
-              : emotts::dispatch_attention<float, false>(a, D);
+  return drop ? emotts::dispatch_attention_f32<true>(a, D)
+              : emotts::dispatch_attention_f32<false>(a, D);
 }

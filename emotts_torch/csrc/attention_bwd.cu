@@ -36,10 +36,12 @@
 //   dkv kernel   one block per key tile, a sweep over the query tiles.
 // Every sweep recomputes S and dP_d for its tile pairs, so the design does
 // nine T x T x D products where the algorithm has five (18 against
-// 10 * B*H*T^2*D operations).  The tensor-core version keeps that: there the
-// products are not what the time goes to (the exponentials, the roundings
-// and the copies around them are).  The dropout mask is regenerated from (seed, head, query, key)
-// exactly as in the forward kernel (attention_common.cuh).
+// 10 * B*H*T^2*D operations).  In bf16 the products are not what the time
+// goes to (the exponentials, the roundings and the copies around them are);
+// in fp32 they are, and the four extra products are what keeps the pair
+// slower than a backward that takes rowsum(dP * P) from a saved O.  The
+// dropout mask is regenerated from (seed, head, query, key) exactly as in
+// the forward kernel (attention_common.cuh).
 //
 // Padding: the bias is additive -1e9, so a padded key has P = 0 exactly and
 // a fully padded query row has uniform P and a finite gradient, as in the
@@ -93,332 +95,50 @@
 //    and dK.  Rounding of a single value is integer arithmetic
 //    (round_bf16_alu), of a pair one conversion instruction: the conversion
 //    unit is the one the exponentials use.
-// fp32: `attention_bwd_dq_kernel` and `attention_bwd_dkv_kernel`, on the
-// fp32 FMA units (64-query and 32-key tiles, products through shared
-// memory); TF32 would change the numbers the fp32 comparisons hold to 2e-4.
+// fp32: on the tensor cores (mma.sync.m16n8k8, TF32 operands, each product
+// as three: 3xTF32, see attention.cu and common.cuh), the same nine products
+// and the same two launches.  What bounds it: operations; the design does
+// 3 x 18 against the bound's 10 B*H*T^2*D, so bound / time stays under 1/5.
+// Every tile is fp32 at a row stride of D + 4 floats (conflict-free
+// fragment loads), copied by 16-byte cp.async with rows beyond T
+// zero-filled; the bias and the row statistics come by 4-byte cp.async.  A
+// fresh result (P, dS, or their transposes) is the A operand of the next
+// product straight from its accumulator: the rows of the other operand are
+// read in the C fragment's order (slot t is row 2t, slot t + 4 row 2t + 1),
+// so nothing is shuffled.
+//  - dq kernel (`attention_bwd_dq_f32_kernel`): 64 queries a block (Q and
+//    dO of 128 rows would fill shared memory alone); K and V in
+//    double-buffered tiles of 32 keys (16 at D = 256).  Two groups of 4
+//    warps (16 query rows a warp) take half of every key tile each, so that
+//    a block has 8 warps: per tile and warp S = Q K^T and dP_d = dO V^T
+//    (16 x 16); sweep 1 sums delta = rowsum(dP * P) from P as in the bf16
+//    kernel, sweep 2 forms dS and accumulates dQ += dS K.  Each group holds a
+//    16 x D fp32 dQ a warp over its keys; the two groups' deltas and, at the
+//    end, their dQs are added through shared memory in a fixed order.
+//    Shared memory: Q and dO of 64 rows, two stages of K and V, their bias,
+//    the delta shares: 201,472 bytes at D = 192, 200,448 at D = 256;
+//    registers 204 a thread at D = 192 (215 with dropout).
+//  - dkv kernel (`attention_bwd_dkv_f32_kernel`): 64 keys a block, keys the
+//    rows of every product as in the bf16 kernel, two groups of 4 warps (16
+//    keys each) with their own roles, since dK and dV together would be 192
+//    accumulator registers a thread at D = 192.  Per tile of 32 queries (16
+//    at D = 256), double-buffered with their m, l and delta:
+//      group 0: S^T = K Q^T; P^T = exp(S^T - m) / l; P_d^T; P^T to a scratch
+//               (fp32, register-major, a dropped entry with its sign bit
+//               set); dV += P_d^T dO;
+//      group 1: dP_d^T = V dO^T; after a named barrier, dS^T = P^T (dP^T -
+//               delta) * scale; dK += dS^T Q.
+//    Shared memory: K and V of 64 rows, two stages of Q and dO, the scratch
+//    and the statistics: 209,664 bytes at D = 192, 204,160 at D = 256;
+//    registers 194 a thread at D = 192 (199 with dropout).
+//  Registers and spills (none at D = 192) as ptxas reports them:
+//  tools/profile_attention_f32.py, which also times each kernel of a call
+//  beside the library's backward.
 #include "attention_common.cuh"
 
 #include <math.h>
 
 namespace emotts {
-
-constexpr int kBwdBQ = 64;  // queries per tile
-constexpr int kBwdBK = 32;  // keys per tile
-
-template <typename T>
-size_t attn_bwd_smem_bytes(int D) {
-  const int ld = D + attn_row_pad<T>();
-  return (size_t)(2 * kBwdBQ + 2 * kBwdBK) * ld * sizeof(T) +
-         (size_t)(2 * kBwdBQ * kBwdBK + 3 * kBwdBQ + kBwdBK) * sizeof(float);
-}
-
-template <typename T, int D>
-struct BwdSmem {
-  static constexpr int LD = D + attn_row_pad<T>();
-  T *sQ, *sDO, *sK, *sV;
-  float *sS, *sDP;             // kBwdBQ x kBwdBK each
-  float *sM, *sL, *sDelta;     // per query row: max, sum, rowsum(dP * P)
-  float *sBias;                // per key
-  __device__ explicit BwdSmem(unsigned char* raw) {
-    sQ = reinterpret_cast<T*>(raw);
-    sDO = sQ + kBwdBQ * LD;
-    sK = sDO + kBwdBQ * LD;
-    sV = sK + kBwdBK * LD;
-    sS = reinterpret_cast<float*>(sV + kBwdBK * LD);
-    sDP = sS + kBwdBQ * kBwdBK;
-    sM = sDP + kBwdBQ * kBwdBK;
-    sL = sM + kBwdBQ;
-    sDelta = sL + kBwdBQ;
-    sBias = sDelta + kBwdBQ;
-  }
-};
-
-// For the tile pair (queries q0.., keys k0..) held in shared memory, either
-// (DELTA_ONLY) add the tile's share of rowsum(dP * P) to sDelta, or
-//   sS  <- P_d (the dropped-out probabilities, in the compute type's values)
-//   sDP <- dS  (rounded to the compute type).
-// Ends with a __syncthreads().
-template <typename T, int D, bool DROP, bool DELTA_ONLY>
-__device__ __forceinline__ void tile_probs_and_ds(
-    const BwdSmem<T, D>& sm, int q0, int k0, int Tlen, float scale,
-    uint32_t key, uint32_t thresh, float inv_keep, int tid) {
-  constexpr int LD = BwdSmem<T, D>::LD;
-  // 16 x 16 threads, each a 4 x 2 patch of both products
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  {
-    float s[4][2], dp[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[2], vv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = to_float(sm.sQ[(4 * ty + i) * LD + d]);
-        gv[i] = to_float(sm.sDO[(4 * ty + i) * LD + d]);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        kv[j] = to_float(sm.sK[(tx + 16 * j) * LD + d]);
-        vv[j] = to_float(sm.sV[(tx + 16 * j) * LD + d]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int kk = tx + 16 * j;
-      const float bj = sm.sBias[kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // same order as the forward pass: (dot * scale) + bias
-        sm.sS[(4 * ty + i) * kBwdBK + kk] = s[i][j] * scale + bj;
-        sm.sDP[(4 * ty + i) * kBwdBK + kk] = dp[i][j];
-      }
-    }
-  }
-  __syncthreads();
-
-  // elementwise, by groups of 4 keys (one Philox call each): 512 groups,
-  // two per thread
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int g = tid + kThreads * i;
-    const int r = g >> 3, c4 = g & 7;
-    const int qi = q0 + r;
-    const float m = sm.sM[r], l = sm.sL[r];
-    const float delta = DELTA_ONLY ? 0.f : sm.sDelta[r];
-    float row_sum = 0.f;
-    uint32_t bits[4] = {0u, 0u, 0u, 0u};
-    if constexpr (DROP) {
-      const uint4 w = dropout_bits(key, (uint32_t)qi, (uint32_t)((k0 >> 2) + c4));
-      bits[0] = w.x; bits[1] = w.y; bits[2] = w.z; bits[3] = w.w;
-    }
-    float* ps = sm.sS + r * kBwdBK + 4 * c4;
-    float* pg = sm.sDP + r * kBwdBK + 4 * c4;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool inside = qi < Tlen && (k0 + 4 * c4 + e) < Tlen;
-      const float p =
-          inside ? to_float(from_float<T>(expf(ps[e] - m) / l)) : 0.f;
-      float pd = p, dpv = pg[e];
-      if constexpr (DROP) {
-        const bool keep = bits[e] >= thresh;
-        pd = keep ? to_float(from_float<T>(p * inv_keep)) : 0.f;
-        dpv = keep ? dpv * inv_keep : 0.f;
-      }
-      if constexpr (DELTA_ONLY) {
-        row_sum = fmaf(dpv, p, row_sum);
-      } else {
-        ps[e] = pd;
-        pg[e] = to_float(from_float<T>((p * (dpv - delta)) * scale));
-      }
-    }
-    if constexpr (DELTA_ONLY) {
-      // the 8 groups of a row sit in 8 neighbouring lanes; one of them owns
-      // the row's sum, so the order of additions is fixed
-      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
-      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
-      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 4);
-      if (c4 == 0) sm.sDelta[r] += row_sum;
-    }
-  }
-  __syncthreads();
-}
-
-template <typename T, int DJ, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const float* __restrict__ bias,
-                        const int* __restrict__ seeds,
-                        const float* __restrict__ stats,
-                        const T* __restrict__ dout, T* __restrict__ dq,
-                        float* __restrict__ delta_out, int Tlen, int H,
-                        float scale, uint32_t thresh, float inv_keep) {
-  constexpr int D = DJ * 32;
-  constexpr int LD = BwdSmem<T, D>::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const BwdSmem<T, D> sm(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kBwdBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long row_stride = (long long)H * D;
-  const long long base = ((long long)b * Tlen) * row_stride + (long long)h * D;
-  const long long stat_row = ((long long)b * H + h) * Tlen;
-  const long long stat_plane = (long long)gridDim.z * H * Tlen;
-  const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
-
-  load_rows<T, D, LD>(sm.sQ, q, base, row_stride, q0, kBwdBQ, Tlen, tid);
-  load_rows<T, D, LD>(sm.sDO, dout, base, row_stride, q0, kBwdBQ, Tlen, tid);
-  if (tid < kBwdBQ) {
-    const int t = q0 + tid;
-    sm.sM[tid] = t < Tlen ? stats[stat_row + t] : 0.f;
-    sm.sL[tid] = t < Tlen ? stats[stat_plane + stat_row + t] : 1.f;
-    sm.sDelta[tid] = 0.f;
-  }
-
-  // first sweep: rowsum(dP * P) of the 64 query rows
-  for (int k0 = 0; k0 < Tlen; k0 += kBwdBK) {
-    __syncthreads();
-    load_rows<T, D, LD>(sm.sK, k, base, row_stride, k0, kBwdBK, Tlen, tid);
-    load_rows<T, D, LD>(sm.sV, v, base, row_stride, k0, kBwdBK, Tlen, tid);
-    if (tid < kBwdBK) {
-      const int t = k0 + tid;
-      sm.sBias[tid] = t < Tlen ? bias[(long long)b * Tlen + t] : 0.f;
-    }
-    __syncthreads();
-    tile_probs_and_ds<T, D, DROP, true>(sm, q0, k0, Tlen, scale, key, thresh,
-                                        inv_keep, tid);
-  }
-  if (tid < kBwdBQ && q0 + tid < Tlen)
-    delta_out[stat_row + q0 + tid] = sm.sDelta[tid];
-
-  float acc[8][DJ];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[r][j] = 0.f;
-
-  for (int k0 = 0; k0 < Tlen; k0 += kBwdBK) {
-    __syncthreads();  // the previous tile's sK and sDP are no longer read
-    load_rows<T, D, LD>(sm.sK, k, base, row_stride, k0, kBwdBK, Tlen, tid);
-    load_rows<T, D, LD>(sm.sV, v, base, row_stride, k0, kBwdBK, Tlen, tid);
-    if (tid < kBwdBK) {
-      const int t = k0 + tid;
-      sm.sBias[tid] = t < Tlen ? bias[(long long)b * Tlen + t] : 0.f;
-    }
-    __syncthreads();
-    tile_probs_and_ds<T, D, DROP, false>(sm, q0, k0, Tlen, scale, key, thresh,
-                                         inv_keep, tid);
-    // dQ += dS K
-#pragma unroll 2
-    for (int kk = 0; kk < kBwdBK; ++kk) {
-      float kv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = to_float(sm.sK[kk * LD + lane + 32 * j]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float ds = sm.sDP[(8 * warp + r) * kBwdBK + kk];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[r][j] = fmaf(ds, kv[j], acc[r][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int t = q0 + 8 * warp + r;
-    if (t < Tlen) {
-      T* row = dq + base + (long long)t * row_stride;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) row[lane + 32 * j] = from_float<T>(acc[r][j]);
-    }
-  }
-}
-
-template <typename T, int DJ, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const float* __restrict__ bias,
-                         const int* __restrict__ seeds,
-                         const float* __restrict__ stats,
-                         const T* __restrict__ dout,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int Tlen, int H, float scale,
-                         uint32_t thresh, float inv_keep) {
-  constexpr int D = DJ * 32;
-  constexpr int LD = BwdSmem<T, D>::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const BwdSmem<T, D> sm(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int k0 = blockIdx.x * kBwdBK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long row_stride = (long long)H * D;
-  const long long base = ((long long)b * Tlen) * row_stride + (long long)h * D;
-  const long long stat_row = ((long long)b * H + h) * Tlen;
-  const long long stat_plane = (long long)gridDim.z * H * Tlen;
-  const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
-
-  load_rows<T, D, LD>(sm.sK, k, base, row_stride, k0, kBwdBK, Tlen, tid);
-  load_rows<T, D, LD>(sm.sV, v, base, row_stride, k0, kBwdBK, Tlen, tid);
-  if (tid < kBwdBK) {
-    const int t = k0 + tid;
-    sm.sBias[tid] = t < Tlen ? bias[(long long)b * Tlen + t] : 0.f;
-  }
-
-  // warp w owns key rows 4w .. 4w+3, lane owns depth lane + 32 j
-  float acc_k[4][DJ], acc_v[4][DJ];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[r][j] = acc_v[r][j] = 0.f;
-
-  for (int q0 = 0; q0 < Tlen; q0 += kBwdBQ) {
-    __syncthreads();  // the previous tile's sQ, sDO, sS, sDP are no longer read
-    load_rows<T, D, LD>(sm.sQ, q, base, row_stride, q0, kBwdBQ, Tlen, tid);
-    load_rows<T, D, LD>(sm.sDO, dout, base, row_stride, q0, kBwdBQ, Tlen, tid);
-    if (tid < kBwdBQ) {
-      const int t = q0 + tid;
-      const bool ok = t < Tlen;
-      sm.sM[tid] = ok ? stats[stat_row + t] : 0.f;
-      sm.sL[tid] = ok ? stats[stat_plane + stat_row + t] : 1.f;
-      sm.sDelta[tid] = ok ? delta[stat_row + t] : 0.f;
-    }
-    __syncthreads();
-    tile_probs_and_ds<T, D, DROP, false>(sm, q0, k0, Tlen, scale, key, thresh,
-                                         inv_keep, tid);
-    // dV += P_d^T dO ; dK += dS^T Q
-#pragma unroll 2
-    for (int qq = 0; qq < kBwdBQ; ++qq) {
-      float gv[DJ], qv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        gv[j] = to_float(sm.sDO[qq * LD + lane + 32 * j]);
-        qv[j] = to_float(sm.sQ[qq * LD + lane + 32 * j]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float pd = sm.sS[qq * kBwdBK + 4 * warp + r];
-        const float ds = sm.sDP[qq * kBwdBK + 4 * warp + r];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          acc_v[r][j] = fmaf(pd, gv[j], acc_v[r][j]);
-          acc_k[r][j] = fmaf(ds, qv[j], acc_k[r][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = k0 + 4 * warp + r;
-    if (t < Tlen) {
-      T* krow = dk + base + (long long)t * row_stride;
-      T* vrow = dv + base + (long long)t * row_stride;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        krow[lane + 32 * j] = from_float<T>(acc_k[r][j]);
-        vrow[lane + 32 * j] = from_float<T>(acc_v[r][j]);
-      }
-    }
-  }
-}
 
 struct BwdArgs {
   const void *q, *k, *v;
@@ -434,50 +154,407 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int DJ, bool DROP>
-int launch_attention_bwd(const BwdArgs& a) {
-  constexpr int D = DJ * 32;
-  const size_t smem = attn_bwd_smem_bytes<T>(D);
-  if (smem > (size_t)kMaxSmemBytes) return kErrSharedMemory;
-  auto dq_kern = attention_bwd_dq_kernel<T, DJ, DROP>;
-  auto dkv_kern = attention_bwd_dkv_kernel<T, DJ, DROP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      dkv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = 1.0f / sqrtf((float)D);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  dim3 grid_q((a.T + kBwdBQ - 1) / kBwdBQ, a.H, a.B);
-  dq_kern<<<grid_q, kThreads, smem, a.stream>>>(
-      q, k, v, a.bias, a.seeds, a.stats, dout, static_cast<T*>(a.dq), a.delta, a.T, a.H, scale, a.thresh, a.inv_keep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // reads the delta the first kernel wrote: same stream, so ordered after it
-  dim3 grid_k((a.T + kBwdBK - 1) / kBwdBK, a.H, a.B);
-  dkv_kern<<<grid_k, kThreads, smem, a.stream>>>(
-      q, k, v, a.bias, a.seeds, a.stats, dout, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.T, a.H, scale, a.thresh, a.inv_keep);
-  return (int)cudaGetLastError();
-}
+// ---------------------------------------------------------------------------
+// fp32 on the tensor cores (mma.sync, 3xTF32)
+// ---------------------------------------------------------------------------
 
-template <typename T, bool DROP>
-int dispatch_attention_bwd(const BwdArgs& a, int D) {
-  switch (D) {
-    case 32: return launch_attention_bwd<T, 1, DROP>(a);
-    case 64: return launch_attention_bwd<T, 2, DROP>(a);
-    case 96: return launch_attention_bwd<T, 3, DROP>(a);
-    case 128: return launch_attention_bwd<T, 4, DROP>(a);
-    case 192: return launch_attention_bwd<T, 6, DROP>(a);
-    case 256: return launch_attention_bwd<T, 8, DROP>(a);
-    default: return kErrUnsupportedShape;
+template <int D>
+struct BwdQF32 {
+  static constexpr int BQ = 64;                 // queries per block, 16 a warp
+  static constexpr int THREADS = 256;           // two groups of four warps
+  static constexpr int BK = D > 192 ? 16 : 32;  // keys per tile, half to a group
+  static constexpr int KH = BK / 2;
+  static constexpr int LD = F32Tile<D>::LD;
+  static constexpr int Q_FLOATS = BQ * LD;      // Q or dO
+  static constexpr int KV_FLOATS = BK * LD;     // one K or V tile
+  // Q, dO; stage s: K at 2s, V at 2s + 1 (in KV tiles), after the sweeps
+  // group 1's dQ (register-major); the bias of stage s; each group's share
+  // of delta
+  static constexpr int KV = 2 * Q_FLOATS;
+  static constexpr int BIAS = KV + 4 * KV_FLOATS;
+  static constexpr int PART = BIAS + 2 * BK;
+  static constexpr int SMEM = (PART + 2 * BQ) * 4;
+  static_assert(4 * KV_FLOATS >= 128 * D / 2, "dQ hand-over does not fit");
+};
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(BwdQF32<D>::THREADS, 1)
+attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ bias,
+                            const int* __restrict__ seeds,
+                            const float* __restrict__ stats,
+                            const float* __restrict__ dout, float* __restrict__ dq,
+                            float* __restrict__ delta_out, int Tlen, int H,
+                            float scale, uint32_t thresh, float inv_keep) {
+  using C = BwdQF32<D>;
+  constexpr int LD = C::LD, BK = C::BK, KH = C::KH, NT = D / 8, NK = KH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sDO = sQ + C::Q_FLOATS;
+  float* sKV = sQ + C::KV;
+  const float* sBias = sQ + C::BIAS;
+  float* sPart = sQ + C::PART;
+
+  const int tid = threadIdx.x;
+  const int grp = tid >> 7;  // keys grp * KH .. of every tile
+  const int t128 = tid & 127, warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int q0 = blockIdx.x * C::BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long row_stride = (long long)H * D;
+  const long long base = (long long)b * Tlen * row_stride + (long long)h * D;
+  const long long stat_row = ((long long)b * H + h) * Tlen;
+  const long long stat_plane = (long long)gridDim.z * H * Tlen;
+  const float* bias_b = bias + (long long)b * Tlen;
+  const int nkt = (Tlen + BK - 1) / BK;
+  const int lrow = 16 * warp + g;  // this thread's rows q0 + lrow, + 8
+  const int row0 = q0 + lrow;
+  const int kofs = grp * KH;
+  const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
+
+  auto load_kv = [&](int j, int s) {
+    float* sK = sKV + 2 * s * C::KV_FLOATS;
+    copy_rows_f32<D, BK, C::THREADS>(sK, k + base, row_stride, j * BK, Tlen, tid);
+    copy_rows_f32<D, BK, C::THREADS>(sK + C::KV_FLOATS, v + base, row_stride,
+                                     j * BK, Tlen, tid);
+    copy_floats(wg::smem_addr(sBias + s * BK), bias_b, j * BK, BK, Tlen, tid);
+    cp_async_commit_group();
+  };
+  copy_rows_f32<D, C::BQ, C::THREADS>(sQ, q + base, row_stride, q0, Tlen, tid);
+  copy_rows_f32<D, C::BQ, C::THREADS>(sDO, dout + base, row_stride, q0, Tlen, tid);
+  load_kv(0, 0);  // one group with Q and dO
+
+  float m[2], inv_l[2], dsum[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    m[r] = row < Tlen ? stats[stat_row + row] : 0.f;
+    // a row beyond T gets 1 / l = 0, hence P = 0
+    inv_l[r] = row < Tlen ? 1.f / stats[stat_plane + stat_row + row] : 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int c = 0; c < NT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  const float* qa = sQ + lrow * LD + t;
+  const float* ga = sDO + lrow * LD + t;
+
+  // sweep 0 (it < nkt): rowsum(dP * P); sweep 1: dQ
+  for (int it = 0; it < 2 * nkt; ++it) {
+    const int s = it & 1;
+    const bool second = it >= nkt;
+    const int k0 = (second ? it - nkt : it) * BK;
+    cp_async_wait_group<0>();
+    __syncthreads();
+    if (it + 1 < 2 * nkt) load_kv(it + 1 < nkt ? it + 1 : it + 1 - nkt, s ^ 1);
+    if (it == nkt) {
+      // the four lanes of a row add their shares in a fixed order, then the
+      // two groups' shares are added in a fixed order
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+        if (t == 0) sPart[grp * C::BQ + lrow + 8 * r] = dsum[r];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        delta[r] = sPart[lrow + 8 * r] + sPart[C::BQ + lrow + 8 * r];
+        const int row = row0 + 8 * r;
+        if (grp == 0 && t == 0 && row < Tlen) delta_out[stat_row + row] = delta[r];
+      }
+    }
+    const float* sK = sKV + 2 * s * C::KV_FLOATS + kofs * LD;  // the group's keys
+    const float* sV = sK + C::KV_FLOATS;
+
+    // S = Q K^T, dP_d = dO V^T: 16 x KH a warp each
+    float sc[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
+    mma_abt<D, NK>(sc, qa, sK + g * LD + t);
+    mma_abt<D, NK>(dp, ga, sV + g * LD + t);
+
+    // only the last tile has key slots beyond T
+    const bool full = k0 + BK <= Tlen;
+    uint32_t dh[NK][4], dl[NK][4];  // dS, the split A fragments of dQ += dS K
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint4 w = make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (DROP)
+          w = dropout_bits(key, (uint32_t)(row0 + 8 * r),
+                           (uint32_t)(((k0 + kofs) >> 2) + 2 * n + (t >> 1)));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kofs + 8 * n + 2 * t + e;  // key k0 + col
+          const int idx = 2 * r + e;
+          const float sv = __fadd_rn(__fmul_rn(sc[n][idx], scale), sBias[s * BK + col]);
+          float p = expf(sv - m[r]) * inv_l[r];
+          if (!full && k0 + col >= Tlen) p = 0.f;
+          float dpv = dp[n][idx];
+          if constexpr (DROP) {
+            const uint32_t word = (t & 1) ? (e ? w.w : w.z) : (e ? w.y : w.x);
+            dpv = word >= thresh ? dpv * inv_keep : 0.f;
+          }
+          if (second)
+            split_tf32<true>((p * (dpv - delta[r])) * scale, dh[n][r + 2 * e],
+                             dl[n][r + 2 * e]);
+          else
+            dsum[r] = fmaf(dpv, p, dsum[r]);
+        }
+      }
+
+    // dQ += dS K over the group's keys, K's rows read in the order of dS's
+    // C fragment
+    if (second) mma_pb<D, NK>(acc, dh, dl, sK + 2 * t * LD + g);
+  }
+
+  // dQ = group 0's sum + group 1's, handed over through the K and V stages
+  __syncthreads();
+  if (grp == 1) {
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sKV[(4 * c + i) * 128 + t128] = acc[c][i];
+  }
+  __syncthreads();
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < Tlen) {
+        float* dst = dq + base + (long long)row * row_stride + 2 * t;
+#pragma unroll
+        for (int c = 0; c < NT; ++c)
+          *reinterpret_cast<float2*>(dst + 8 * c) =
+              make_float2(acc[c][2 * r] + sKV[(4 * c + 2 * r) * 128 + t128],
+                          acc[c][2 * r + 1] + sKV[(4 * c + 2 * r + 1) * 128 + t128]);
+      }
+    }
   }
 }
 
+template <int D>
+struct BwdKVF32 {
+  static constexpr int BKEY = 64;               // keys per block, 16 a warp
+  static constexpr int THREADS = 256;           // two groups of four warps
+  static constexpr int BQ = D > 192 ? 16 : 32;  // queries per tile
+  static constexpr int LD = F32Tile<D>::LD;
+  static constexpr int NQ = BQ / 8;
+  static constexpr int KV_FLOATS = BKEY * LD;   // K or V
+  static constexpr int Q_FLOATS = BQ * LD;      // one Q or dO tile
+  // K, V; stage s: Q at 2s, dO at 2s + 1 (in Q tiles); P^T of group 0 (fp32,
+  // register-major); m, l, delta of stage s
+  static constexpr int SCRATCH = 2 * KV_FLOATS + 4 * Q_FLOATS;
+  static constexpr int STATS = SCRATCH + 128 * NQ * 4;
+  static constexpr int SMEM = (STATS + 2 * 3 * BQ) * 4;
+};
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(BwdKVF32<D>::THREADS, 1)
+attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ bias,
+                             const int* __restrict__ seeds,
+                             const float* __restrict__ stats,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ delta, float* __restrict__ dk,
+                             float* __restrict__ dv, int Tlen, int H, float scale,
+                             uint32_t thresh, float inv_keep) {
+  using C = BwdKVF32<D>;
+  constexpr int LD = C::LD, BQ = C::BQ, NT = D / 8, NQ = C::NQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + C::KV_FLOATS;
+  float* sQD = sV + C::KV_FLOATS;
+  float* scratch = sK + C::SCRATCH;
+  float* sStats = sK + C::STATS;
+
+  const int tid = threadIdx.x;
+  const int grp = tid >> 7;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int t128 = tid & 127, warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int key0 = blockIdx.x * C::BKEY;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long row_stride = (long long)H * D;
+  const long long base = (long long)b * Tlen * row_stride + (long long)h * D;
+  const long long stat_row = ((long long)b * H + h) * Tlen;
+  const long long stat_plane = (long long)gridDim.z * H * Tlen;
+  const int nqt = (Tlen + BQ - 1) / BQ;
+  const int lrow = 16 * warp + g;  // this thread's key rows lrow, lrow + 8
+  const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
+
+  // Q, dO and their queries' m, l, delta of tile j into stage s
+  auto load_q = [&](int j, int s) {
+    const int t0 = j * BQ;
+    float* sQs = sQD + 2 * s * C::Q_FLOATS;
+    copy_rows_f32<D, BQ, C::THREADS>(sQs, q + base, row_stride, t0, Tlen, tid);
+    copy_rows_f32<D, BQ, C::THREADS>(sQs + C::Q_FLOATS, dout + base, row_stride,
+                                     t0, Tlen, tid);
+    if (tid < 3 * BQ) {
+      const int which = tid / BQ;
+      const float* src = which == 0 ? stats + stat_row
+                         : which == 1 ? stats + stat_plane + stat_row
+                                      : delta + stat_row;
+      copy_floats(wg::smem_addr(sStats + (3 * s + which) * BQ), src, t0, BQ, Tlen,
+                  tid - which * BQ);
+    }
+    cp_async_commit_group();
+  };
+  copy_rows_f32<D, C::BKEY, C::THREADS>(sK, k + base, row_stride, key0, Tlen, tid);
+  copy_rows_f32<D, C::BKEY, C::THREADS>(sV, v + base, row_stride, key0, Tlen, tid);
+  load_q(0, 0);  // one group with K and V
+
+  // a key beyond T gets bias -inf, hence P = 0 in every column
+  float bk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = key0 + lrow + 8 * r;
+    bk[r] = kr < Tlen ? bias[(long long)b * Tlen + kr] : -INFINITY;
+  }
+  float acc[NT][4];  // dV (group 0) or dK (group 1)
+#pragma unroll
+  for (int c = 0; c < NT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  // A rows: the warp's 16 keys of K (group 0) or V (group 1)
+  const float* ka = (grp == 0 ? sK : sV) + lrow * LD + t;
+
+  for (int j = 0; j < nqt; ++j) {
+    const int s = j & 1, q0 = j * BQ;
+    cp_async_wait_group<0>();
+    __syncthreads();  // tile j has landed; tile j - 1 and its scratch are done with
+    if (j + 1 < nqt) load_q(j + 1, s ^ 1);
+    const float* sQs = sQD + 2 * s * C::Q_FLOATS;
+    const float* sDOs = sQs + C::Q_FLOATS;
+    const float* st = sStats + 3 * s * BQ;  // m, l, delta of the tile's queries
+    // only the last tile has query slots beyond T
+    const bool full = q0 + BQ <= Tlen;
+
+    // S^T = K Q^T (group 0) or dP_d^T = V dO^T (group 1): 16 keys x BQ
+    // queries a warp
+    float sc[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    mma_abt<D, NQ>(sc, ka, (grp == 0 ? sQs : sDOs) + g * LD + t);
+
+    uint32_t fh[NQ][4], fl[NQ][4];  // P_d^T (group 0) or dS^T (group 1), split
+    if (grp == 0) {
+      // P^T and P_d^T; P^T goes to group 1 through the scratch, a dropped
+      // entry with its sign bit set (P >= 0, so the sign carries the mask)
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n + 2 * t + e;  // query q0 + col
+          const bool in = full || q0 + col < Tlen;
+          const float mq = st[col];
+          const float il = in ? 1.f / st[BQ + col] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float sv = __fadd_rn(__fmul_rn(sc[n][2 * r + e], scale), bk[r]);
+            const float p = expf(sv - mq) * il;
+            float pd = p, pv = p;
+            if constexpr (DROP) {
+              // key kr is word kr % 4 = g % 4 of group kr / 4
+              const int kr = key0 + lrow + 8 * r;
+              const uint4 w = dropout_bits(key, (uint32_t)(q0 + col), (uint32_t)(kr >> 2));
+              const int word = g & 3;
+              const uint32_t bits = word == 0 ? w.x : word == 1 ? w.y : word == 2 ? w.z : w.w;
+              const bool keep = bits >= thresh;
+              pd = keep ? p * inv_keep : 0.f;
+              pv = keep ? p : -p;
+            }
+            split_tf32<true>(pd, fh[n][r + 2 * e], fl[n][r + 2 * e]);
+            scratch[((n * 2 + e) * 2 + r) * 128 + t128] = pv;
+          }
+        }
+      wg::barrier_arrive(1, 256);  // P^T is in the scratch
+      // dV += P_d^T dO, dO's rows read in the order of P^T's C fragment
+      mma_pb<D, NQ>(acc, fh, fl, sDOs + 2 * t * LD + g);
+    } else {
+      wg::barrier_sync(1, 256);
+      // dS^T = P^T (dP^T - delta) * scale, dP^T taken back through dropout
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n + 2 * t + e;
+          const float dlt = st[2 * BQ + col];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float p = scratch[((n * 2 + e) * 2 + r) * 128 + t128];
+            float dpv = sc[n][2 * r + e];
+            if constexpr (DROP) {
+              dpv = signbit(p) ? 0.f : dpv * inv_keep;
+              p = fabsf(p);
+            }
+            split_tf32<true>((p * (dpv - dlt)) * scale, fh[n][r + 2 * e],
+                             fl[n][r + 2 * e]);
+          }
+        }
+      // dK += dS^T Q
+      mma_pb<D, NQ>(acc, fh, fl, sQs + 2 * t * LD + g);
+    }
+  }
+
+  float* dst = grp == 0 ? dv : dk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = key0 + lrow + 8 * r;
+    if (kr < Tlen) {
+      float* row = dst + base + (long long)kr * row_stride + 2 * t;
+#pragma unroll
+      for (int c = 0; c < NT; ++c)
+        *reinterpret_cast<float2*>(row + 8 * c) = make_float2(acc[c][2 * r], acc[c][2 * r + 1]);
+    }
+  }
+}
+
+// static: each library keeps its own record of the attribute it set
+template <int D, bool DROP>
+static int launch_attention_bwd_f32(const BwdArgs& a) {
+  using CQ = BwdQF32<D>;
+  using CK = BwdKVF32<D>;
+  static_assert(CQ::SMEM <= kMaxSmemBytes && CK::SMEM <= kMaxSmemBytes,
+                "backward tiles do not fit");
+  auto dq_kern = attention_bwd_dq_f32_kernel<D, DROP>;
+  auto dkv_kern = attention_bwd_dkv_f32_kernel<D, DROP>;
+  static std::atomic<unsigned long long> dq_smem_set{0}, dkv_smem_set{0};
+  cudaError_t err = set_max_dynamic_smem(dq_kern, CQ::SMEM, dq_smem_set);
+  if (err != cudaSuccess) return (int)err;
+  err = set_max_dynamic_smem(dkv_kern, CK::SMEM, dkv_smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const float scale = 1.0f / sqrtf((float)D);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  dim3 grid_q((a.T + CQ::BQ - 1) / CQ::BQ, a.H, a.B);
+  dq_kern<<<grid_q, CQ::THREADS, CQ::SMEM, a.stream>>>(
+      q, k, v, a.bias, a.seeds, a.stats, dout, static_cast<float*>(a.dq), a.delta,
+      a.T, a.H, scale, a.thresh, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // reads the delta the first kernel wrote: same stream, so ordered after it
+  dim3 grid_k((a.T + CK::BKEY - 1) / CK::BKEY, a.H, a.B);
+  dkv_kern<<<grid_k, CK::THREADS, CK::SMEM, a.stream>>>(
+      q, k, v, a.bias, a.seeds, a.stats, dout, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.T, a.H, scale, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <bool DROP>
+int dispatch_attention_bwd_f32(const BwdArgs& a, int D) {
+  switch (D) {
+    case 32: return launch_attention_bwd_f32<32, DROP>(a);
+    case 64: return launch_attention_bwd_f32<64, DROP>(a);
+    case 96: return launch_attention_bwd_f32<96, DROP>(a);
+    case 128: return launch_attention_bwd_f32<128, DROP>(a);
+    case 192: return launch_attention_bwd_f32<192, DROP>(a);
+    case 256: return launch_attention_bwd_f32<256, DROP>(a);
+    default: return kErrUnsupportedShape;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -987,8 +1064,8 @@ int dispatch_attention_bwd_tc(const BwdArgs& a, int D) {
 
 }  // namespace emotts
 
-// q, k, v, dout, dq, dk, dv: contiguous (B, T, H, D) in fp32
-// (is_bf16 = 0) or bf16 (1, 16-byte aligned); bias (B, T) fp32; stats
+// q, k, v, dout, dq, dk, dv: contiguous, 16-byte aligned (B, T, H, D) in
+// fp32 (is_bf16 = 0) or bf16 (1); bias (B, T) fp32; stats
 // (2, B, H, T) fp32 as the forward kernel wrote them; delta (B, H, T) fp32
 // scratch; seeds (B,) int32 (may be null when drop == 0).  D in {32, 64, 96,
 // 128, 192, 256}.  Two launches on `stream`, no synchronisation; returns 0 or
@@ -1004,12 +1081,10 @@ extern "C" int emotts_attention_bwd(
   const emotts::BwdArgs a{q, k, v, bias, seeds, stats, dout, dq, dk, dv,
                           delta, B, T, H, thresh, inv_keep,
                           static_cast<cudaStream_t>(stream)};
-  if (is_bf16) {
-    if (!emotts::aligned16({q, k, v, dout, dq, dk, dv}))
-      return emotts::kErrMisaligned;
+  if (!emotts::aligned16({q, k, v, dout, dq, dk, dv})) return emotts::kErrMisaligned;
+  if (is_bf16)
     return drop ? emotts::dispatch_attention_bwd_tc<true>(a, D)
                 : emotts::dispatch_attention_bwd_tc<false>(a, D);
-  }
-  return drop ? emotts::dispatch_attention_bwd<float, true>(a, D)
-              : emotts::dispatch_attention_bwd<float, false>(a, D);
+  return drop ? emotts::dispatch_attention_bwd_f32<true>(a, D)
+              : emotts::dispatch_attention_bwd_f32<false>(a, D);
 }

@@ -1,5 +1,6 @@
-// What the attention forward and backward kernels share: the padded tile
-// row, the dropout generator and the tile loaders.
+// What the attention forward and backward kernels share: the dropout
+// generator, the bf16 kernels' TMA tiles and the fp32 kernels' tiles and
+// tensor-core products.
 #pragma once
 
 #include "common.cuh"
@@ -9,14 +10,6 @@
 #include <stdint.h>
 
 namespace emotts {
-
-template <typename T>
-__host__ __device__ constexpr int attn_row_pad() {
-  // row stride of a tile read by rows, in elements beyond D: an odd number of
-  // 32-bit words, so that lanes reading different rows at one depth hit
-  // different banks
-  return sizeof(T) == 2 ? 2 : 1;
-}
 
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 // 3", 2011): a counter-based generator, so a draw is a pure function of
@@ -51,19 +44,120 @@ __device__ __forceinline__ uint4 dropout_bits(uint32_t key, uint32_t query,
   return philox4x32_10(query, kgroup, 0u, 0u, key, 0u);
 }
 
-// rows x D values of a (B, T, H, D) tensor, rows t0 .. t0+rows-1 of one
-// (batch, head), into a tile of row stride LD; rows beyond T are zero.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_rows(T* __restrict__ dst,
-                                          const T* __restrict__ src,
-                                          long long base, long long row_stride,
-                                          int t0, int rows, int Tlen, int tid) {
-  for (int e = tid; e < rows * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
+// The fp32 tiles of the tensor-core kernels (attention.cu, attention_bwd.cu):
+// rows of D floats at a stride of D + 4, so that the fragment loads of
+// mma.sync, lane (g, t) at row g and column t (or at row 2t and column g), hit
+// 32 different banks.
+template <int D>
+struct F32Tile {
+  static constexpr int LD = D + 4;
+  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
+};
+
+// Start the 16-byte cp.async copies of `rows` rows t0 .. of one (batch, head)
+// of a contiguous fp32 (B, T, H, D) tensor (`src` at that (batch, head)'s row
+// 0) into a tile of stride D + 4; rows at or beyond T are zero-filled.  All
+// THREADS threads take part; the caller commits the group.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void copy_rows_f32(float* dst, const float* src,
+                                              long long row_stride, int t0,
+                                              int Tlen, int tid) {
+  constexpr int CH = D / 4;  // 16-byte chunks of a row
+#pragma unroll 4
+  for (int e = tid; e < ROWS * CH; e += THREADS) {
+    const int r = e / CH, c = e - r * CH;
     const int t = t0 + r;
-    dst[r * LD + d] = t < Tlen ? src[base + (long long)t * row_stride + d]
-                               : from_float<T>(0.f);
+    const bool ok = t < Tlen;
+    cp_async16_zfill(dst + r * F32Tile<D>::LD + 4 * c,
+                     src + (long long)(ok ? t : 0) * row_stride + 4 * c, ok);
   }
+}
+
+// Start the 4-byte copies of n floats src[t0 ..] into dst (a shared-memory
+// address), zero at or beyond `len`; threads 0 .. n-1 take part.
+__device__ __forceinline__ void copy_floats(uint32_t dst, const float* src,
+                                            int t0, int n, int len, int tid) {
+  if (tid < n) {
+    const int t = t0 + tid;
+    wg::cp_async4(dst + 4 * tid, src + (t < len ? t : 0), t < len);
+  }
+}
+
+// The A fragment of mma.sync.m16n8k8 (rows g, g + 8; columns t, t + 4) of a
+// 16-row fp32 tile read at `p` = row g, column t, split into its TF32 hi and lo.
+template <int LD>
+__device__ __forceinline__ void a_frag(const float* p, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split_tf32<true>(p[0], hi[0], lo[0]);
+  split_tf32<true>(p[8 * LD], hi[1], lo[1]);
+  split_tf32<true>(p[4], hi[2], lo[2]);
+  split_tf32<true>(p[8 * LD + 4], hi[3], lo[3]);
+}
+
+// d[c0 ..] += a * b in 3xTF32 for N n8 tiles that share one A fragment, the
+// three products of an accumulator N products apart so that none waits for
+// the one before it (the vocoder core's order: lo*hi, hi*lo, hi*hi).
+template <int N, int M>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[M][4], int c0,
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[N][2],
+                                           const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[c0 + n], al, bh[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[c0 + n], ah, bl[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[c0 + n], ah, bh[n]);
+}
+
+// acc (16 x 8N per warp) += A B^T over depth D in 3xTF32: A a 16-row tile
+// read at `a` (row g, column t of the warp's rows), B N n8 tiles of rows read
+// at `b` (row g, column t of the tile's first row), both of stride LD.  The
+// S = Q K^T form of the attention kernels.
+template <int D, int N>
+__device__ __forceinline__ void mma_abt(float (&acc)[N][4], const float* a,
+                                        const float* b) {
+  constexpr int LD = F32Tile<D>::LD;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8) {
+    uint32_t ah[4], al[4], bh[N][2], bl[N][2];
+    a_frag<LD>(a + kk, ah, al);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      split_tf32<true>(b[8 * n * LD + kk], bh[n][0], bl[n][0]);
+      split_tf32<true>(b[8 * n * LD + kk + 4], bh[n][1], bl[n][1]);
+    }
+    mma_3xtf32<N>(acc, 0, ah, al, bh, bl);
+  }
+}
+
+// acc (16 x D per warp) += P B over K8 k-steps of 8 rows of B in 3xTF32, P
+// given as the split A fragments of each k-step.  P comes from the C
+// fragment of an earlier product, where thread (g, t) holds columns 2t and
+// 2t + 1 of an n8 tile; A slot t of k-step j is taken to be B row 8j + 2t and
+// slot t + 4 row 8j + 2t + 1, so P needs no shuffle (a sum over rows does not
+// depend on their order).  `b` points at row 2t, column g of the first k-step's
+// rows (stride LD).
+template <int D, int K8>
+__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
+                                       const uint32_t (&ph)[K8][4],
+                                       const uint32_t (&pl)[K8][4],
+                                       const float* b) {
+  constexpr int LD = F32Tile<D>::LD;
+  constexpr int G = 4;  // n8 tiles per group of products
+#pragma unroll
+  for (int j = 0; j < K8; ++j)
+#pragma unroll
+    for (int c0 = 0; c0 < D / 8; c0 += G) {
+      uint32_t bh[G][2], bl[G][2];
+#pragma unroll
+      for (int c = 0; c < G; ++c) {
+        split_tf32<true>(b[8 * j * LD + 8 * (c0 + c)], bh[c][0], bl[c][0]);
+        split_tf32<true>(b[(8 * j + 1) * LD + 8 * (c0 + c)], bh[c][1], bl[c][1]);
+      }
+      mma_3xtf32<G>(acc, c0, ph[j], pl[j], bh, bl);
+    }
 }
 
 // Width of a bf16 tensor-core tile for head dim D: whole 64-column swizzle

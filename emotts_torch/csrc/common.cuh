@@ -74,4 +74,60 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// TF32 on the tensor cores, shared by the vocoder's conv core
+// (resblock_common.cuh) and the fp32 attention kernels.  fp32 is emulated
+// with 3xTF32: v splits into hi = cvt.rna.tf32(v) and lo = cvt.rna.tf32(v - hi)
+// (both through cvt: the tensor cores ignore the low 13 bits of an
+// unconverted operand), and a_lo*b_hi + a_hi*b_lo + a_hi*b_hi is accumulated
+// in fp32; the dropped a_lo*b_lo is below 2^-22 of the product.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a * b on the tensor cores, TF32 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// hi = tf32(v), lo = tf32(v - hi); without SPLIT v is already a TF32 value
+// (exact in bf16) and only hi is used.
+template <bool SPLIT>
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  if (SPLIT) {
+    hi = to_tf32(v);
+    lo = to_tf32(v - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(v);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The 16-byte copy with zero fill: `valid` false reads nothing and writes 16
+// zero bytes (rows beyond T of an attention tile).
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src,
+                                                 bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 }  // namespace emotts

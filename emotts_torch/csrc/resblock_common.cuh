@@ -123,46 +123,6 @@ struct ConvGeom {
                 "unsupported channel count");
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// d += a * b on the tensor cores, TF32 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// hi = tf32(v), lo = tf32(v - hi); without SPLIT v is already a TF32 value
-// (exact in bf16) and only hi is used.
-template <bool SPLIT>
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  if (SPLIT) {
-    hi = to_tf32(v);
-    lo = to_tf32(v - __uint_as_float(hi));
-  } else {
-    hi = __float_as_uint(v);
-  }
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit_group() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Epilogue of conv1: z = round(mask(lrelu(acc))) -> Z, two columns at a time
 template <int C, bool ROUND>
 struct StoreZ {

@@ -16,7 +16,7 @@ and backward, with every product accumulated in fp32:
     dQ = dS K ;  dK = dSᵀ Q
 
 The forward kernel is ``csrc/attention.cu``: one block per (batch, head,
-64-query tile), an online softmax over 64-key tiles.  The backward is
+query tile), an online softmax over key tiles.  The backward is
 ``csrc/attention_bwd.cu``: two launches without atomics (blocks over query
 tiles for dQ, blocks over key tiles for dK and dV), so a repeated call gives
 the same bits.  Nothing of size T×T reaches device memory either way, and the
@@ -24,9 +24,12 @@ module's own (B, T, H, D) layout is read with strides.  When a gradient is
 wanted the forward also writes each row's softmax maximum and sum (2·B·H·T
 floats) and the backward forms P from them; rowsum(dP ⊙ P) is summed from the
 same rounded P in a sweep of its own, as the reference sums it.  Both kernels
-are bound by operations: bf16 runs every product on the tensor cores
-(``wgmma``, building blocks in ``csrc/wgmma.cuh``), fp32 on the FMA units;
-see the notes at the top of the sources.
+are bound by operations and run every product on the tensor cores: bf16 on
+``wgmma`` (building blocks in ``csrc/wgmma.cuh``), fp32 on ``mma.sync`` with
+TF32 operands, each product as three (3×TF32: hi·hi + hi·lo + lo·hi of each
+operand split into a TF32 high part and a TF32 remainder), which stays
+within the fp32 tolerance where one TF32 product would not; see the notes at
+the top of the sources.
 
 The dropout mask is a pure function of (seed[b], head, query, key): Philox4x32-10
 keyed by ``seed[b] + head·(−1640531527)`` (int32 wrap-around, the reference's
@@ -52,6 +55,9 @@ from emotts_torch.ops import _build
 launch_count = 0
 # number of CUDA launches the backward wrapper made (two per call)
 bwd_launch_count = 0
+# the fp32 instances' share of the two counts above
+fp32_launch_count = 0
+fp32_bwd_launch_count = 0
 
 _SUPPORTED_D = (32, 64, 96, 128, 192, 256)
 BWD_LAUNCHES_PER_CALL = 2
@@ -256,7 +262,7 @@ def attention_forward(q, k, v, bias, seeds=None, rate: float = 0.0,
              if want_stats else None)
     fn = _entry("emotts_attention_fwd", "attention", _FWD_ARGTYPES)
     drop = rate > 0.0
-    global launch_count
+    global launch_count, fp32_launch_count
     with _launch_device(q):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                   seeds.data_ptr() if drop else None, out.data_ptr(),
@@ -266,6 +272,8 @@ def attention_forward(q, k, v, bias, seeds=None, rate: float = 0.0,
                   torch.cuda.current_stream().cuda_stream)
     _build.check(code, "emotts_attention_fwd")
     launch_count += 1
+    if q.dtype == torch.float32:
+        fp32_launch_count += 1
     return out, stats
 
 
@@ -287,7 +295,7 @@ def attention_backward(q, k, v, bias, seeds, stats, dout, rate: float = 0.0):
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     fn = _entry("emotts_attention_bwd", "attention_bwd", _BWD_ARGTYPES)
     drop = rate > 0.0
-    global bwd_launch_count
+    global bwd_launch_count, fp32_bwd_launch_count
     with _launch_device(q):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                   seeds.data_ptr() if drop else None,
@@ -298,6 +306,8 @@ def attention_backward(q, k, v, bias, seeds, stats, dout, rate: float = 0.0):
                   torch.cuda.current_stream().cuda_stream)
     _build.check(code, "emotts_attention_bwd")
     bwd_launch_count += BWD_LAUNCHES_PER_CALL
+    if q.dtype == torch.float32:
+        fp32_bwd_launch_count += BWD_LAUNCHES_PER_CALL
     return dq, dk, dv
 
 

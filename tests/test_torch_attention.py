@@ -17,7 +17,8 @@ from emotts.nn.blocks import MultiHeadSelfAttention as JaxMHSA
 from emotts_torch.nn.blocks import MultiHeadSelfAttention
 from emotts_torch.nn.convert import fs2_from_flax
 from emotts_torch.ops import attention as ta
-from tests.torch_port_util import jit, single_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    KERNEL_TOL, einsum_3xtf32, einsum_tf32, jit, single_torch_thread, within)
 
 # fp32 on both sides; the two differ in summation order only
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -119,3 +120,28 @@ def test_kernel_return_codes_raise_with_their_reason(code, reason):
     _build.check(0, "entry")
     with pytest.raises(RuntimeError, match=reason):
         _build.check(code, "entry")
+
+
+def test_3xtf32_design_holds_the_fp32_tolerance(monkeypatch):
+    """The fp32 CUDA kernels' arithmetic, emulated in plain torch: every
+    product of the plain forward and backward as 3xTF32 stays within the
+    kernels' fp32 tolerance of the fp32 plain versions; one TF32 product a
+    term would not."""
+    rng = np.random.default_rng(8)
+    b, t, h, d = 2, 64, 2, 192
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(np.float32))
+                     for _ in range(4))
+    bias = torch.zeros(b, t)
+    bias[1, 40:] = -1e9  # one padded row
+
+    def run():
+        return (ta.fused_attention_plain(q, k, v, bias),
+                *ta.fused_attention_bwd_plain(q, k, v, bias, dout))
+
+    want = run()
+    for product, holds in ((einsum_3xtf32, True), (einsum_tf32, False)):
+        with monkeypatch.context() as m:
+            m.setattr(ta.torch, "einsum", product)
+            got = run()
+        for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+            assert within(g, w, **KERNEL_TOL) == holds, (product.__name__, name)

@@ -14,7 +14,8 @@ from emotts_torch.ops import mrf as tm
 from emotts_torch.ops.resblock import (SMEM_FLOATS, chain_halo, ring_floats,
                                        row_floats, z_offset)
 from tests.torch_port_util import (  # noqa: F401
-    conv1d_btc_3xtf32, conv1d_btc_tf32, jit, single_torch_thread, tf32_round)
+    KERNEL_TOL, conv1d_btc_3xtf32, conv1d_btc_tf32, jit, single_torch_thread,
+    tf32_round, within)
 
 # fp32 on both sides, different summation order
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -130,14 +131,6 @@ def test_cpu_wrapper_counts_no_launch_and_checks_arguments(rng):
         tm.fused_mrf_stage(x, params, (3, 7))  # one ResBlock's weights short
 
 
-# chip_smoke.py's fp32 tolerance for the kernels against their plain versions
-KERNEL_TOL = dict(atol=2e-4, rtol=2e-4)
-
-
-def _within(got, want, atol, rtol):
-    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
-
-
 def test_3xtf32_design_holds_the_fp32_tolerance(rng, monkeypatch):
     """The CUDA kernel's arithmetic, emulated in plain torch: every conv of
     the stage as 3xTF32 stays within the kernels' fp32 tolerance of the fp32
@@ -146,9 +139,9 @@ def test_3xtf32_design_holds_the_fp32_tolerance(rng, monkeypatch):
     x = torch.from_numpy(rng.standard_normal((2, 100, 32)).astype(np.float32))
     want = tm.fused_mrf_stage_plain(x, params)
     monkeypatch.setattr(tm, "conv1d_btc", conv1d_btc_3xtf32)
-    assert _within(tm.fused_mrf_stage_plain(x, params), want, **KERNEL_TOL)
+    assert within(tm.fused_mrf_stage_plain(x, params), want, **KERNEL_TOL)
     monkeypatch.setattr(tm, "conv1d_btc", conv1d_btc_tf32)
-    assert not _within(tm.fused_mrf_stage_plain(x, params), want, **KERNEL_TOL)
+    assert not within(tm.fused_mrf_stage_plain(x, params), want, **KERNEL_TOL)
 
 
 def test_one_tf32_product_is_exact_on_bf16_operands(rng, monkeypatch):

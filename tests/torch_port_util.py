@@ -184,3 +184,30 @@ def conv1d_btc_3xtf32(x, w, dilation):
 def conv1d_btc_tf32(x, w, dilation):
     """One TF32 product a term: the bf16 MRF instance's arithmetic."""
     return conv1d_btc(tf32_round(x), tf32_round(w), dilation)
+
+
+# chip_smoke.py's fp32 tolerance for the kernels against their plain versions
+KERNEL_TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+def within(got, want, atol, rtol):
+    """Every element of ``got`` within atol + rtol·|want| of ``want``."""
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+_einsum = torch.einsum  # the library's, whatever a test patches in its place
+
+
+def einsum_3xtf32(equation, a, b):
+    """The fp32 attention kernels' product arithmetic in plain torch: both
+    operands split as in :func:`conv1d_btc_3xtf32`, and
+    a_lo·b_hi + a_hi·b_lo + a_hi·b_hi summed in fp32."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return (_einsum(equation, al, bh) + _einsum(equation, ah, bl)
+            + _einsum(equation, ah, bh))
+
+
+def einsum_tf32(equation, a, b):
+    """One TF32 product a term."""
+    return _einsum(equation, tf32_round(a), tf32_round(b))

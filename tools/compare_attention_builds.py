@@ -5,8 +5,8 @@
     python3 tools/compare_attention_builds.py _archive_check/parent
 
 Each checkout builds its own kernels (both builds started together), then
-each runs the bf16 attention cases of ``chip_smoke.py``'s kernels phase in a
-process of its own, in the order parent, this, this, parent, on inputs made
+each runs the attention cases of ``chip_smoke.py``'s kernels phase (bf16 and
+fp32, forward and backward) in a process of its own, in the order parent, this, this, parent, on inputs made
 from one seed.  A case reports the wall time of a wrapper call (CUDA events
 around back-to-back calls: for a short kernel, the wrapper's host time) and
 its device time (the calls queued behind a sleep kernel, so that the card
@@ -21,16 +21,26 @@ import subprocess
 import sys
 
 SEED = 1234
-# (label, kind, b, t, d, rate): chip_smoke.py's bf16 attention cases
+# (dtype, kind, b, t, d, rate): chip_smoke.py's attention cases
 CASES = [
-    ("fwd", 60, 48, 192, 0.0), ("fwd", 3, 200, 192, 0.0), ("fwd", 60, 1024, 192, 0.0),
-    ("fwd", 8, 250, 64, 0.0), ("fwd", 8, 250, 256, 0.0),
-    ("fwd", 16, 512, 192, 0.1), ("fwd", 16, 1024, 192, 0.1),
-    ("bwd", 16, 512, 192, 0.0), ("bwd", 16, 512, 192, 0.1),
-    ("bwd", 16, 1024, 192, 0.0), ("bwd", 16, 1024, 192, 0.1),
-    ("bwd", 128, 320, 192, 0.0), ("bwd", 128, 320, 192, 0.1),
-    ("bwd", 16, 777, 192, 0.0), ("bwd", 16, 777, 192, 0.1),
-    ("bwd", 8, 250, 64, 0.0), ("bwd", 8, 250, 256, 0.0),
+    ("bfloat16", "fwd", 60, 48, 192, 0.0), ("bfloat16", "fwd", 3, 200, 192, 0.0),
+    ("bfloat16", "fwd", 60, 1024, 192, 0.0),
+    ("bfloat16", "fwd", 8, 250, 64, 0.0), ("bfloat16", "fwd", 8, 250, 256, 0.0),
+    ("bfloat16", "fwd", 16, 512, 192, 0.1), ("bfloat16", "fwd", 16, 1024, 192, 0.1),
+    ("bfloat16", "bwd", 16, 512, 192, 0.0), ("bfloat16", "bwd", 16, 512, 192, 0.1),
+    ("bfloat16", "bwd", 16, 1024, 192, 0.0), ("bfloat16", "bwd", 16, 1024, 192, 0.1),
+    ("bfloat16", "bwd", 128, 320, 192, 0.0), ("bfloat16", "bwd", 128, 320, 192, 0.1),
+    ("bfloat16", "bwd", 16, 777, 192, 0.0), ("bfloat16", "bwd", 16, 777, 192, 0.1),
+    ("bfloat16", "bwd", 8, 250, 64, 0.0), ("bfloat16", "bwd", 8, 250, 256, 0.0),
+    ("float32", "fwd", 60, 48, 192, 0.0), ("float32", "fwd", 8, 1024, 192, 0.0),
+    ("float32", "fwd", 8, 250, 64, 0.0), ("float32", "fwd", 8, 250, 256, 0.0),
+    ("float32", "fwd", 8, 512, 192, 0.1), ("float32", "fwd", 3, 200, 192, 0.1),
+    ("float32", "fwd", 8, 250, 64, 0.1), ("float32", "fwd", 8, 250, 256, 0.1),
+    ("float32", "bwd", 8, 512, 192, 0.0), ("float32", "bwd", 8, 512, 192, 0.1),
+    ("float32", "bwd", 3, 200, 192, 0.0), ("float32", "bwd", 3, 200, 192, 0.1),
+    ("float32", "bwd", 16, 1024, 192, 0.0), ("float32", "bwd", 16, 1024, 192, 0.1),
+    ("float32", "bwd", 8, 250, 64, 0.0), ("float32", "bwd", 8, 250, 64, 0.1),
+    ("float32", "bwd", 8, 250, 256, 0.0), ("float32", "bwd", 8, 250, 256, 0.1),
 ]
 
 
@@ -69,10 +79,11 @@ def worker(tree, build_only):
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / iters
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     out = []
-    for kind, b, t, d, rate in CASES:
+    for dtype, kind, b, t, d, rate in CASES:
         gen = torch.Generator().manual_seed(SEED)
-        q, k, v, dout = (torch.randn(b, t, 2, d, generator=gen).to(dev, torch.bfloat16)
+        q, k, v, dout = (torch.randn(b, t, 2, d, generator=gen).to(dev, getattr(torch, dtype))
                          for _ in range(4))
         lens = torch.randint(1, t + 1, (b,), generator=gen)
         lens[0], lens[1] = t, 0
@@ -86,8 +97,10 @@ def worker(tree, build_only):
 
             def fn():
                 return A.attention_backward(q, k, v, bias, seeds, stats, dout, rate)
-        out.append(dict(case=f"{kind} ({b},{t},2,{d}) rate {rate}",
+        out.append(dict(case=f"{dtype} {kind} ({b},{t},2,{d}) rate {rate}",
                         wall_ms=wall_ms(fn), device_ms=device_ms(fn)))
+        del q, k, v, dout
+        torch.cuda.empty_cache()
     print(json.dumps(dict(tree=tree, cases=out)), flush=True)
 
 
@@ -114,7 +127,7 @@ def main():
         print(json.dumps(dict(run=name, **line)), flush=True)
         runs[name].append(line["cases"])
     summary = []
-    for i, (kind, b, t, d, rate) in enumerate(CASES):
+    for i in range(len(CASES)):
         row = dict(case=runs["this"][0][i]["case"])
         for name in trees:
             for key in ("wall_ms", "device_ms"):
