@@ -55,6 +55,20 @@ a non-zero exit:
               kernels) and evaluate_intensity_efficacy on the experiments of
               phases 8 and 12 over phase 15's corpus: finite reports,
               launches, the eval forward against the all-plain one
+17. vocoder_train  VocoderTrainer.fit at the full width of
+              Config().train_vocoder (V1 generator, MPD + MSD, batch 16,
+              bf16) for 20 steps on phase 15's wavs: finite losses, both
+              models changed, checkpoint and vocoder.npz, a resume (state,
+              step, sampler seed); a step's wall, profiler reading, parts,
+              operations and bound
+18. vocoder_train_parity  one fp32 GAN step at narrow widths on the card
+              against the same step on the CPU: metrics and gradients
+19. vocoder_finetune  condition "fs2": predicted_mel_pairs through the fp32
+              Evaluator (attention launches counted), then 5 GAN steps at
+              full width from phase 17's checkpoint
+20. serve_trained_vocoder  the fine-tune's vocoder.npz through
+              load_synthesizer (MRF and ResBlock kernels) against the plain
+              generator on the same .npz, launches
 
 The last line is {"ok": true, "device": {...}}; before it stand the card line
 and one {"kernels": [...]} line.  Without a GPU the script exits non-zero and
@@ -63,6 +77,7 @@ prints no result.
 
 import base64
 import copy
+import glob
 import io
 import json
 import math
@@ -1012,17 +1027,20 @@ def serve_with_bank(weights, bank):
     return dict(samples=int(wav.size), peak=float(np.abs(wav).max()))
 
 
-def profile_steps(trainer, batches, rows, timed=5, traced=3, host_ops=True):
+ATTENTION_GROUPS = (("attention_forward", "attention_fwd_"),
+                    ("attention_backward", "attention_bwd_"))
+
+
+def profile_steps(trainer, batches, rows, timed=5, traced=3, host_ops=True,
+                  groups=ATTENTION_GROUPS):
     """Where a train step's time goes, for each of ``batches`` (keyed by
     frame bucket): wall time of a step, and the device time of its kernels
     by name from a torch.profiler trace of ``traced`` steps (``host_ops``:
-    the host's operators traced too).  A reading, not a check: it only fails
-    if a step fails."""
+    the host's operators traced too), summed by ``groups`` (label, kernel
+    name part).  A reading, not a check: it only fails if a step fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    groups = (("attention_forward", "attention_fwd_"),
-              ("attention_backward", "attention_bwd_"))
     out = {}
     for frames, batch in batches.items():
         for _ in range(2):
@@ -1390,26 +1408,6 @@ def fs2_parity_phase(root, rank_exp, dev):
              fused_attention_bwd=2 * fs2_layers), relu_gates=True)
 
 
-def vocoder_npz(voc_sd, path):
-    """A generator state_dict as the flat .npz (keys a/b/c of the reference's
-    params tree) that ``load_vocoder_checkpoint`` reads: the inverse of
-    ``hifigan_from_flax``."""
-    flat = {k: v.numpy() for k, v in voc_sd.items() if k.startswith("conv_")}
-    n_ups = len([k for k in voc_sd if k.startswith("up_kernels.")])
-    n_k = len({k.split(".")[1] for k in voc_sd if k.startswith("resblocks.")}) // n_ups
-    for i in range(n_ups):
-        flat[f"up_{i}_kernel"] = voc_sd[f"up_kernels.{i}"].numpy()
-        flat[f"up_{i}_bias"] = voc_sd[f"up_biases.{i}"].numpy()
-        for j in range(n_k):
-            base = f"resblocks.{i * n_k + j}"
-            for conv, w, bias in (("convs1", "w1", "b1"), ("convs2", "w2", "b2")):
-                for d, (wd, bd) in enumerate(zip(voc_sd[f"{base}.{w}"],
-                                                 voc_sd[f"{base}.{bias}"])):
-                    flat[f"resblock_{i}_{j}/{conv}_{d}_kernel"] = wd.numpy()
-                    flat[f"resblock_{i}_{j}/{conv}_{d}_bias"] = bd.numpy()
-    np.savez(path, **flat)
-
-
 STREAM_CHUNK = 32  # mel frames a chunk: 512 ms of audio
 
 
@@ -1441,12 +1439,13 @@ def stream_phase(root, fs2_exp, rank_exp, voc_sd, dev):
     from emotts_torch.infer.server import make_server
     from emotts_torch.infer.streaming import (generator_halo_frames, stream_text,
                                               vocode_streaming)
-    from emotts_torch.infer.synthesize import load_synthesizer
+    from emotts_torch.infer.synthesize import load_synthesizer, save_vocoder_params_npz
+    from emotts_torch.nn.convert import hifigan_to_flax
     from emotts_torch.ops import attention, mrf, resblock
 
     cfg = full_width_config()
     npz = os.path.join(root, "vocoder.npz")
-    vocoder_npz(voc_sd, npz)
+    save_vocoder_params_npz(hifigan_to_flax(voc_sd), npz)
     cfg.inference.vocoder_checkpoint = npz
     synth = load_synthesizer(cfg, fs2_exp, rank_exp, device=dev)
     if not (synth.vocoder.fused_mrf and synth.vocoder.use_pallas_resblocks
@@ -1974,6 +1973,454 @@ def evaluate_phase(cfg, fs2_exp, rank_exp, dev):
             free_running_max_abs_err=fr_err, tolerance=TOL[torch.float32]))
 
 
+# --------------------------------------------------------------------------
+# phases 17-20: HiFi-GAN training on the raw corpus, its parity, the
+# FS2-conditioned fine-tune, and serving the exported vocoder through the
+# kernels
+# --------------------------------------------------------------------------
+
+PEAK_FP32 = 67e12  # float32 outside the tensor cores: the generator's convs, TF32 off
+VOC_STEPS = 20  # full-width GAN steps (the configured run: 500,000)
+VOC_RESUME_STEPS = 2
+VOC_FINETUNE_STEPS = 5
+# narrow fp32 widths for the card-against-CPU step
+VOC_PARITY = dict(upsample_initial_channel=64, disc_channel_mult=0.125, batch_size=4,
+                  compute_dtype="float32")
+VOC_PARITY_TOL = dict(metrics_rtol=1e-4, gradient_rtol_of_largest_entry=1e-3)
+SERVE_TEXTS = ("The new voice was trained here.", "It speaks through the kernels.",
+               "One more line for the vocoder.")
+
+
+def vocoder_config(root, **overrides):
+    """Config().train_vocoder as it stands — HiFi-GAN V1 (512 channels,
+    rates 8·8·2·2), MPD periods 2/3/5/7/11 and MSD 3 scales at full
+    channels, batch 16, 32-frame segments, bf16, condition "gt", lr 2e-4
+    with b1 0.8, b2 0.99 — over phase 15's raw corpus (prepare_corpus's
+    16 kHz wavs under ``<root>/corpus``), with ``overrides`` of
+    ``train_vocoder``."""
+    cfg = raw_config(root)
+    cfg.fastspeech2.fused_attention = cfg.rank_model.fused_attention = True
+    for key, value in overrides.items():
+        setattr(cfg.train_vocoder, key, value)
+    return cfg
+
+
+def recorded_steps(trainer):
+    """Wrap ``trainer.train_step``: each step's synchronised wall ms and
+    metrics are appended to the lists returned."""
+    step, step_ms, metrics = trainer.train_step, [], []
+
+    def recorded(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append(out)
+        return out
+
+    trainer.train_step = recorded
+    return step_ms, metrics
+
+
+def models_changed(before, trainer):
+    """Whether the generator and the discriminators differ from ``before``."""
+    now = dict(gen=trainer.gen.state_dict(), disc=trainer.disc.state_dict())
+    return {name: not same_bits(before[name], now[name]) for name in before}
+
+
+def model_states(trainer):
+    return dict(gen=copy.deepcopy(trainer.gen.state_dict()),
+                disc=copy.deepcopy(trainer.disc.state_dict()))
+
+
+def check_finite(metrics, what):
+    values = [v for m in metrics for v in m.values()]
+    if not metrics or not np.isfinite(values).all():
+        raise AssertionError(f"{what}: losses are not all finite: {metrics}")
+
+
+def traced_device_ms(fn, runs=3):
+    """(device ms, kernel launches, the three largest kernels by device ms)
+    of one call of ``fn``: kernel rows of a torch.profiler trace of
+    ``runs`` calls after one warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    largest = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    return (sum(e.self_device_time_total for e in kernels) / runs / 1e3,
+            sum(e.count for e in kernels) // runs,
+            [[e.key[:60], e.self_device_time_total / runs / 1e3, e.count // runs]
+             for e in largest])
+
+
+def vocoder_step_parts(trainer, batch, dev):
+    """The device time, launches and operations of each part of a GAN step,
+    each run alone at the step's shapes as the step runs it: the generator
+    forward and backward; MPD and MSD each (real and fake forward with the
+    update's backward, then the fake forward with the backward into ŷ and
+    the real forward without gradient); the three mel computations with the
+    mel loss's backward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from emotts_torch.losses.gan import (discriminator_loss, feature_matching_loss,
+                                         generator_adversarial_loss, mel_l1_loss)
+
+    y = torch.from_numpy(batch["y"]).to(dev)
+    with torch.no_grad():
+        mel_in = trainer._device_mel(y).transpose(1, 2)
+        mel_soft = trainer._device_mel(y, floor="soft")
+        y_hat = trainer._gen_forward(mel_in)
+    upstream = (1e-3 * torch.randn(y_hat.shape, generator=torch.Generator().manual_seed(SEED))
+                ).to(dev)
+
+    def generator():
+        trainer._gen_forward(mel_in).backward(upstream)
+
+    def discriminator(d):
+        def run():
+            real, _ = d(y)
+            fake, _ = d(y_hat)
+            discriminator_loss(real, fake).backward()
+            leaf = y_hat.detach().requires_grad_()
+            d.requires_grad_(False)
+            try:
+                fake, fake_feats = d(leaf)
+                with torch.no_grad():
+                    _, real_feats = d(y)
+                (generator_adversarial_loss(fake)
+                 + feature_matching_loss(real_feats, fake_feats)).backward()
+            finally:
+                d.requires_grad_(True)
+        return run
+
+    def mel_loss():
+        with torch.no_grad():
+            trainer._device_mel(y)
+            trainer._device_mel(y, floor="soft")
+        leaf = y_hat.detach().requires_grad_()
+        mel_l1_loss(trainer._device_mel(leaf, floor="soft"), mel_soft).backward()
+
+    parts = dict(generator=generator, mpd=discriminator(trainer.disc.mpd),
+                 msd=discriminator(trainer.disc.msd), mel_loss=mel_loss)
+    out = {}
+    for name, fn in parts.items():
+        with FlopCounterMode(display=False) as counter:
+            fn()
+        ms, launches, largest = traced_device_ms(fn) if dev.type == "cuda" else (None,) * 3
+        out[name] = dict(device_ms=ms, launches=launches, flops=counter.get_total_flops(),
+                         largest_kernels=largest)
+    trainer.gen.zero_grad(set_to_none=True)
+    trainer.disc.zero_grad(set_to_none=True)
+    return out
+
+
+def vocoder_train_phase(cfg, dev):
+    """VocoderTrainer.fit at full width for VOC_STEPS steps on the raw
+    corpus; losses finite, both models changed, metrics, checkpoint and
+    vocoder.npz written; a resume from the last checkpoint restores both
+    states and runs VOC_RESUME_STEPS more with the step counter and the
+    sampler seed (seed + step) as the reference sets them.  Then readings
+    of a step: wall, a profiler trace (device ms, launches, idle share), the
+    parts (vocoder_step_parts), its operations (FlopCounterMode) and the
+    bound they imply."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import emotts_torch.train.vocoder_trainer as vt
+
+    vc = cfg.train_vocoder
+    trainer = vt.VocoderTrainer(cfg, device=dev)
+    start = model_states(trainer)
+    step_ms, metrics = recorded_steps(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exp = trainer.fit(n_steps=VOC_STEPS,
+                      exp_path=os.path.join(cfg.data.experiment_path, "vocoder", "gt"))
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del trainer.train_step  # the recording wrapper
+    check_finite(metrics, "vocoder_train")
+    changed = models_changed(start, trainer)
+    del start
+    if len(metrics) != VOC_STEPS or not all(changed.values()):
+        raise AssertionError(f"{len(metrics)} steps; changed {changed}")
+    series = read_metrics(exp)
+    for tag in ("train/d_loss", "train/mel_l1", "train/g_adv", "train/feature_match",
+                "train/g_total", "train/step_time_s"):
+        if tag not in series or not np.isfinite(series[tag]).all():
+            raise AssertionError(f"metrics.jsonl lacks a finite {tag}")
+    checkpoints = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    if checkpoints != [f"step_{VOC_STEPS}.pt"] or not os.path.isfile(
+            os.path.join(exp, "vocoder.npz")):
+        raise AssertionError(f"checkpoints {checkpoints}, or no vocoder.npz")
+
+    # resume: a fresh trainer from the last checkpoint
+    saved = model_states(trainer)
+    fresh = vt.VocoderTrainer(cfg, device=dev)
+    if not fresh.restore(exp) or not same_bits(model_states(fresh), saved):
+        raise AssertionError("the restored vocoder states are not the saved ones")
+    del saved
+    seeds, sampler = [], vt.SegmentSampler
+
+    class Recording(sampler):
+        def __init__(self, *args, seed=0):
+            seeds.append(seed)
+            super().__init__(*args, seed=seed)
+
+    vt.SegmentSampler = Recording
+    try:
+        fresh.fit(n_steps=VOC_STEPS + VOC_RESUME_STEPS, exp_path=exp, resume=True)
+    finally:
+        vt.SegmentSampler = sampler
+    resumed = dict(gen_step=fresh.state.step, disc_step=fresh.state.disc.step,
+                   sampler_seed=seeds, expected_sampler_seed=[vc.seed + VOC_STEPS])
+    if (fresh.state.step, fresh.state.disc.step) != (VOC_STEPS + VOC_RESUME_STEPS,) * 2 \
+            or seeds != [vc.seed + VOC_STEPS]:
+        raise AssertionError(f"resume: {resumed}")
+    del fresh
+
+    # readings of a step, on the fitted trainer (these steps are not fit's)
+    t0 = time.perf_counter()
+    wavs = sorted(glob.glob(os.path.join(cfg.data.corpus_path, "*", "*.wav")))
+    batch = {"y": vt.SegmentSampler(wavs, cfg.audio.sampling_rate, trainer.segment_samples,
+                                    seed=SEED).batch(vc.batch_size)}
+    profile = profile_steps(trainer, {vc.segment_frames: batch}, lambda b: len(b["y"]),
+                            timed=5, traced=3, host_ops=False, groups=())
+    with FlopCounterMode(display=False) as counter:
+        trainer.train_step(batch)
+    flops = counter.get_total_flops()
+    parts = vocoder_step_parts(trainer, batch, dev)
+    fp32_flops = parts["generator"]["flops"] + parts["mel_loss"]["flops"]
+    bound_ms = 1e3 * flops / PEAK_BF16
+    reading = dict(
+        step_wall_ms_median=float(np.median(step_ms[1:])),
+        step_wall_ms=step_ms, fit_step_time_s=series["train/step_time_s"][-1],
+        profile=profile[str(vc.segment_frames)], parts=parts, step_flops=flops,
+        bound_ms_at_bf16_peak=bound_ms,
+        bound_ms_by_dtype=1e3 * (fp32_flops / PEAK_FP32
+                                 + max(0, flops - fp32_flops) / PEAK_BF16),
+        note_bound="the generator and the mel run in fp32 with TF32 off (CUDA cores, "
+                   "67 TFLOP/s), the discriminators in bf16 (989 TFLOP/s)",
+        seconds=time.perf_counter() - t0)
+    return exp, trainer, dict(
+        cuts=dict(steps=VOC_STEPS, note="Config().train_vocoder at full width; "
+                  "500,000 steps configured"),
+        steps=len(metrics), fit_seconds=fit_s, first_step_ms=step_ms[0],
+        first=metrics[0], last=metrics[-1], peak_memory_bytes=peak,
+        gen_parameters=sum(p.numel() for p in trainer.gen.parameters()),
+        disc_parameters=sum(p.numel() for p in trainer.disc.parameters()),
+        changed=changed, checkpoints=checkpoints, resumed=resumed, reading=reading)
+
+
+def vocoder_parity_phase(root, dev):
+    """One adversarial fp32 step at narrow widths (VOC_PARITY) from the same
+    seeded weights and batch on the card and on the CPU: the five metrics at
+    1e-4 relative, every gradient of the generator and the discriminators
+    within 1e-3 of its own largest entry (both sides fp32 with TF32 off, in
+    other summation orders; the updated parameters are not compared: Adam
+    turns rounding-level gradients into steps of size lr)."""
+    import emotts_torch.train.vocoder_trainer as vt
+
+    cfg = vocoder_config(root, **VOC_PARITY)
+    vc = cfg.train_vocoder
+    wavs = sorted(glob.glob(os.path.join(cfg.data.corpus_path, "*", "*.wav")))
+    batch = {"y": vt.SegmentSampler(wavs, cfg.audio.sampling_rate,
+                                    vc.segment_frames * cfg.audio.hop_length,
+                                    seed=SEED).batch(vc.batch_size)}
+    runs = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        trainer = vt.VocoderTrainer(cfg, device=where)
+        metrics = trainer.train_step(batch)
+        grads = {f"{part}.{n}": p.grad.detach().cpu()
+                 for part, model in (("gen", trainer.gen), ("disc", trainer.disc))
+                 for n, p in model.named_parameters()}
+        runs[side] = (metrics, grads, time.perf_counter() - t0)
+    (m_card, g_card, s_card), (m_cpu, g_cpu, s_cpu) = runs["card"], runs["cpu"]
+    worst_metric = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    worst, worst_at = 0.0, None
+    for name, ref in g_cpu.items():
+        scale = ref.abs().max().item()
+        if not torch.isfinite(g_card[name]).all() or scale == 0.0:
+            raise AssertionError(f"gradient of {name} is not finite, or zero")
+        ratio = (g_card[name] - ref).abs().max().item() / scale
+        if ratio > worst:
+            worst, worst_at = ratio, name
+    out = dict(widths=VOC_PARITY, segment_frames=vc.segment_frames, metrics_card=m_card,
+               metrics_cpu=m_cpu, worst_metric_rel=worst_metric, parameters=len(g_cpu),
+               worst_gradient_difference=worst, worst_at=worst_at, tolerance=VOC_PARITY_TOL,
+               card_seconds=s_card, cpu_seconds=s_cpu)
+    if m_card.keys() != m_cpu.keys() or len(m_cpu) != 5 \
+            or worst_metric > VOC_PARITY_TOL["metrics_rtol"] \
+            or worst > VOC_PARITY_TOL["gradient_rtol_of_largest_entry"]:
+        raise AssertionError(f"vocoder step on the card against the CPU: {out}")
+    return out
+
+
+def vocoder_finetune_phase(cfg, fs2_exp, rank_exp, gt_exp, dev):
+    """condition "fs2": predicted_mel_pairs over the raw corpus's train
+    split through the fp32 Evaluator (the attention forward's fp32
+    launches counted against the FS2 and extractor forwards that make
+    them), then VOC_FINETUNE_STEPS GAN steps at full width on
+    PairedSegmentSampler, continuing the gt run's last checkpoint."""
+    import emotts_torch.train.vocoder_trainer as vt
+    from emotts_torch.nn.fastspeech2 import FastSpeech2
+    from emotts_torch.nn.intensity import IntensityExtractor
+    from emotts_torch.ops import attention
+
+    cfg = copy.deepcopy(cfg)
+    cfg.train_vocoder.condition = "fs2"
+    before, before_all = fp32_attention_launches(), attention.launch_count
+    counters = dict(fs2=ModuleCounter(FastSpeech2), extractor=ModuleCounter(IntensityExtractor))
+    t0 = time.perf_counter()
+    pairs = vt.predicted_mel_pairs(cfg, fs2_exp, rank_exp, device=dev)
+    pairs_s = time.perf_counter() - t0
+    for c in counters.values():
+        c.close()
+    f2 = cfg.fastspeech2
+    fp32 = dict(counted={k: v - before[k] for k, v in fp32_attention_launches().items()},
+                expected=expected_fp32_launches(
+                    counters, {"fs2": f2.enc_num_layers + f2.dec_num_layers,
+                               "extractor": cfg.rank_model.n_encoder_layers}),
+                forwards={name: c.forwards for name, c in counters.items()},
+                all_forward_launches=attention.launch_count - before_all)
+    if (fp32["counted"] != fp32["expected"] or fp32["counted"]["fused_attention"] == 0
+            or fp32["all_forward_launches"] != fp32["counted"]["fused_attention"]):
+        raise AssertionError(f"predicted_mel_pairs' attention launches {fp32}")
+    frames = [int(m.shape[0]) for m, _ in pairs]
+    if not pairs or any(w.size != n * cfg.audio.hop_length for n, (_, w) in zip(frames, pairs)):
+        raise AssertionError(f"{len(pairs)} pairs of {frames} frames")
+
+    trainer = vt.VocoderTrainer(cfg, device=dev)
+    if not trainer.restore(gt_exp):
+        raise AssertionError("no checkpoint of the gt run to fine-tune")
+    start_step = trainer.state.step
+    start = model_states(trainer)
+    step_ms, metrics = recorded_steps(trainer)
+    t0 = time.perf_counter()
+    exp = trainer.fit(n_steps=start_step + VOC_FINETUNE_STEPS, pairs=pairs,
+                      exp_path=os.path.join(cfg.data.experiment_path, "vocoder", "fs2"))
+    fit_s = time.perf_counter() - t0
+    del trainer.train_step
+    check_finite(metrics, "vocoder_finetune")
+    changed = models_changed(start, trainer)
+    if len(metrics) != VOC_FINETUNE_STEPS or not all(changed.values()) \
+            or trainer.state.step != start_step + VOC_FINETUNE_STEPS:
+        raise AssertionError(f"{len(metrics)} fine-tune steps; changed {changed}")
+    npz = os.path.join(exp, "vocoder.npz")
+    if not os.path.isfile(npz):
+        raise AssertionError("the fine-tune exported no vocoder.npz")
+    return npz, dict(
+        pairs=len(pairs), pair_frames=frames, pairs_seconds=pairs_s,
+        fp32_launches=fp32, start_step=start_step, steps=len(metrics),
+        fit_seconds=fit_s, step_wall_ms_median=float(np.median(step_ms[1:])),
+        first=metrics[0], last=metrics[-1], changed=changed)
+
+
+def serve_trained_vocoder_phase(npz, fs2_exp, rank_exp, dev):
+    """The exported vocoder.npz through load_synthesizer (the kernels'
+    generator): a batch of requests served, and a few utterances' mels
+    vocoded through the MRF and ResBlock kernels against the plain
+    generator on the same .npz, within 8 PCM steps; launches against the
+    forwards that make them."""
+    from emotts_torch.infer.synthesize import build_vocoder, load_synthesizer
+    from emotts_torch.nn.convert import load_vocoder_checkpoint
+    from emotts_torch.ops import attention, mrf, resblock
+
+    cfg = full_width_config()
+    cfg.inference.vocoder_checkpoint = npz
+    synth = load_synthesizer(cfg, fs2_exp, rank_exp, device=dev)
+    if dev.type == "cuda" and not (synth.vocoder.fused_mrf
+                                   and synth.vocoder.use_pallas_resblocks):
+        raise AssertionError("load_synthesizer did not build the kernels' generator")
+    plain = build_vocoder(cfg, load_vocoder_checkpoint(npz), device=dev)
+
+    def counts():
+        return dict(fused_attention=attention.launch_count,
+                    fused_mrf_stage=mrf.launch_count, fused_resblock1=resblock.launch_count)
+
+    before = counts()
+    counter = ForwardCounter(synth)
+    t0 = time.perf_counter()
+    waves = synth.synthesize_requests([
+        {"text": text, "speaker": i, "emotion": 1 + i, "level": 1}
+        for i, text in enumerate(SERVE_TEXTS)])
+    served_ms = 1e3 * (time.perf_counter() - t0)
+    steps, frames = 0, []
+    for i, text in enumerate(SERVE_TEXTS):
+        ids = synth.text_to_phoneme_ids(text)
+        mel, lens = synth.synthesize_mels(ids, np.array([i], np.int32),
+                                          synth.intensity_for(i, 1 + i, 1, len(ids))[None])
+        n = int(lens[0])
+        with torch.inference_mode():
+            got = synth.vocode(mel[:, :n])[0].cpu().numpy().astype(np.int64)
+            want = torch.clamp(plain(mel[:, :n]).float() * 32767.0, -32768.0, 32767.0
+                               ).to(torch.int16)[0].cpu().numpy().astype(np.int64)
+        steps = max(steps, int(np.abs(got - want).max()))
+        frames.append(n)
+    counter.close()
+    launches = {k: v - before[k] for k, v in counts().items()}
+    per_mrf, per_resblock = vocoder_launches(synth.vocoder)
+    f2 = cfg.fastspeech2
+    expected = dict(fused_attention=(f2.enc_num_layers + f2.dec_num_layers) * counter.fs2,
+                    fused_mrf_stage=per_mrf * counter.vocoder,
+                    fused_resblock1=per_resblock * counter.vocoder)
+    if dev.type == "cuda" and (launches != expected or min(launches.values()) == 0):
+        raise AssertionError(f"serving the trained vocoder: launches {launches}, "
+                             f"expected {expected}")
+    if any(w.size == 0 or not np.isfinite(w).all() for w in waves) or steps > 8:
+        raise AssertionError(f"served {[w.size for w in waves]} samples; kernels "
+                             f"against the plain generator {steps} PCM steps")
+    return dict(
+        requests=len(waves), samples=[int(w.size) for w in waves],
+        peak=[float(np.abs(w).max()) for w in waves], served_ms=served_ms,
+        compared_frames=frames, max_pcm_steps_kernels_vs_plain=steps, limit_pcm_steps=8,
+        launches=launches, expected=expected, fs2_forwards=counter.fs2,
+        generator_forwards=counter.vocoder,
+        mrf_launches_per_generator_forward=per_mrf,
+        resblock_launches_per_generator_forward=per_resblock)
+
+
+def vocoder_phases(root, fs2_exp, rank_exp, dev):
+    """Phases 17-20 over phase 15's corpus, the kernels' counters set to 0
+    before them and read after: the path's launches (the fine-tune's fp32
+    attention, the trained vocoder's MRF and ResBlock) and its fp32
+    attention launches."""
+    from emotts_torch.ops import attention, mrf, resblock
+
+    zero_counts(attention, mrf, resblock)
+    cfg = vocoder_config(root)
+    t0 = time.perf_counter()
+    gt_exp, trainer, trained = vocoder_train_phase(cfg, dev)
+    emit("vocoder_train", seconds=time.perf_counter() - t0, **trained)
+    del trainer
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    parity = vocoder_parity_phase(root, dev)
+    emit("vocoder_train_parity", seconds=time.perf_counter() - t0, **parity)
+
+    t0 = time.perf_counter()
+    npz, tuned = vocoder_finetune_phase(cfg, fs2_exp, rank_exp, gt_exp, dev)
+    emit("vocoder_finetune", seconds=time.perf_counter() - t0, **tuned)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    served = serve_trained_vocoder_phase(npz, fs2_exp, rank_exp, dev)
+    emit("serve_trained_vocoder", seconds=time.perf_counter() - t0, **served)
+    launches = dict(fused_attention=attention.launch_count,
+                    fused_mrf_stage=mrf.launch_count,
+                    fused_resblock1=resblock.launch_count)
+    return launches, fp32_attention_launches()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
@@ -2122,13 +2569,18 @@ def main():
         eval_launches, evaluated = evaluate_phase(eval_cfg, fs2_exp, exp, dev)
         emit("evaluate", seconds=time.perf_counter() - t0, **evaluated)
         fp32_by_path["evaluation"] = evaluated["launches"]["fp32"]["counted"]
+        torch.cuda.empty_cache()
+
+        # -- 17-20. vocoder training, its parity, the fine-tune, serving it ----
+        voc_launches, fp32_by_path["vocoder_training"] = vocoder_phases(
+            root, fs2_exp, exp, dev)
 
     # -- summary ---------------------------------------------------------------
     # a kernel's launches over the counted paths
     serve_launches = dict(launches)
     by_path = dict(serving=serve_launches, training=train_launches,
                    fs2_training=fs2_launches, streaming=stream_launches,
-                   evaluation=eval_launches)
+                   evaluation=eval_launches, vocoder_training=voc_launches)
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in ("fused_attention", "fused_attention_bwd",
                              "fused_mrf_stage", "fused_resblock1")}

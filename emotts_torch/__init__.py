@@ -5,8 +5,9 @@ The JAX package ``emotts`` beside it is the reference.  This package imports
 the reference so that a module's counterpart is found by its path
 (``emotts_torch/nn/blocks.py`` ↔ ``emotts/nn/blocks.py``).
 
-Ported so far — the path that serves synthesis requests, rank-model and
-FastSpeech2 training, bucketization, preprocessing and evaluation:
+Ported so far — the path that serves synthesis requests, rank-model,
+FastSpeech2 and vocoder training, bucketization, preprocessing and
+evaluation:
 
 * ``emotts_torch.utils``  — the configuration tree and experiment
   directories (own copies).
@@ -19,15 +20,16 @@ FastSpeech2 training, bucketization, preprocessing and evaluation:
   and the fused MRF stage, each with its wrapper, its plain PyTorch version
   and a launch counter.
 * ``emotts_torch.nn``     — FFT blocks, length regulator, FastSpeech2,
-  HiFi-GAN generator, the rank model, conversion of the reference's weights.
-* ``emotts_torch.losses`` — the rank loss.
+  HiFi-GAN generator and discriminators, the rank model, conversion of the
+  reference's weights.
+* ``emotts_torch.losses`` — the rank, FastSpeech2 and GAN losses.
 * ``emotts_torch.data``   — preprocessing into per-utterance ``.npz``, the
   split lists, the rank-pair and FS2 datasets and the bucketed loader.
 * ``emotts_torch.cli``    — corpus preparation (``prepare_corpus``).
 * ``emotts_torch.eval``   — MCD/DTW/F0/duration metrics, ``Evaluator``, the
   intensity-efficacy report.
 * ``emotts_torch.train``  — AdamW with stored-dtype moments, train state,
-  checkpoints, metrics, ``RankTrainer``.
+  checkpoints, metrics, ``RankTrainer``, ``FS2Trainer``, ``VocoderTrainer``.
 * ``emotts_torch.infer``  — ``Synthesizer``, the HTTP server, ``bucketize``.
 """
 

@@ -159,8 +159,12 @@ def _device_constants(cfg: AudioConfig, device: torch.device):
     dft_imag = (np.sin(angle) * window[:, None]).astype(np.float32)
     fb = mel_filterbank(cfg.sampling_rate, cfg.n_fft, cfg.n_mels, cfg.f_min,
                         cfg.f_max).T  # (n_bins, n_mels)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (dft_real, dft_imag, fb))
+    # normal tensors even where the first call runs under inference_mode
+    # (preprocessing): the cached constants also serve the vocoder trainer's
+    # differentiable mel, and inference tensors cannot be saved for backward
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (dft_real, dft_imag, fb))
 
 
 def _full_fp32(device: torch.device) -> None:

@@ -84,22 +84,37 @@ class Evaluator:
 
     # ------------------------------------------------------------------
 
-    @torch.inference_mode()
-    def infer(self, batch: Dict, rep: Optional[np.ndarray] = None):
-        """Teacher-forced and free-running passes over one collated batch:
-        host arrays (tf PostNet mel, tf log-durations, free PostNet mel,
-        free mel lengths).  Conditioning is ``rep`` (B, P, dim), or else
-        each utterance's own extracted representation (the extractor's
-        frames averaged over its phones, ``segment_mean``)."""
+    def _conditioned(self, batch: Dict, rep: Optional[np.ndarray]):
+        """(device batch, the FS2 keyword arguments): conditioning is ``rep``
+        (B, P, dim), or else each utterance's own extracted representation
+        (the extractor's frames averaged over its phones, ``segment_mean``)."""
         b = batch_to_device(batch, self.device)
         if rep is None:
             frames = self.extractor(b["rank_x"], b["mel_len"], b["emotions"])
             cond = segment_mean(frames, b["durations"])
         else:
             cond = torch.from_numpy(np.asarray(rep, np.float32)).to(self.device)
-        common = dict(intensity=cond, max_mel_len=b["mel"].shape[1])
-        tf = self.model(b["phonemes"], b["speakers"], b["durations"], b["pitch"],
-                        b["energy"], **common)
+        return b, dict(intensity=cond, max_mel_len=b["mel"].shape[1])
+
+    def _tf(self, b: Dict, common: Dict):
+        return self.model(b["phonemes"], b["speakers"], b["durations"], b["pitch"],
+                          b["energy"], **common)
+
+    @torch.inference_mode()
+    def teacher_forced(self, batch: Dict, rep: Optional[np.ndarray] = None):
+        """The teacher-forced pass over one collated batch, as host arrays:
+        (PostNet mel, log-durations, mel lengths)."""
+        b, common = self._conditioned(batch, rep)
+        tf = self._tf(b, common)
+        return tf[1].cpu().numpy(), tf[2].cpu().numpy(), tf[7].cpu().numpy()
+
+    @torch.inference_mode()
+    def infer(self, batch: Dict, rep: Optional[np.ndarray] = None):
+        """Teacher-forced and free-running passes over one collated batch:
+        host arrays (tf PostNet mel, tf log-durations, free PostNet mel,
+        free mel lengths), conditioned as :meth:`_conditioned` says."""
+        b, common = self._conditioned(batch, rep)
+        tf = self._tf(b, common)
         free = self.model(b["phonemes"], b["speakers"], **common)
         return (tf[1].cpu().numpy(), tf[2].cpu().numpy(),
                 free[1].cpu().numpy(), free[7].cpu().numpy())

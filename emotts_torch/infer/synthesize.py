@@ -679,6 +679,23 @@ def load_synthesizer(cfg: Config, fs2_exp: Optional[str] = None,
                        vocoder_structure=structure, device=device)
 
 
+def save_vocoder_params_npz(params: Mapping, path: str) -> None:
+    """Flatten a vocoder's ``{'params': tree}`` (numpy leaves, e.g.
+    ``hifigan_to_flax`` of a generator's state_dict) to the ``.npz`` that
+    ``load_vocoder_checkpoint`` reads: keys ``a/b/c``."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix=""):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[f"{prefix}{k}"] = np.asarray(v)
+
+    walk(params["params"])
+    np.savez(path, **flat)
+
+
 def maybe_load_vocoder(cfg: Config) -> Optional[dict]:
     """Load ``cfg.inference.vocoder_checkpoint`` if configured, warning
     (rather than silently degrading) when the configured path is missing.

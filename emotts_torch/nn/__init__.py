@@ -7,8 +7,10 @@ from emotts_torch.nn.blocks import (
     sinusoidal_positional_encoding,
 )
 from emotts_torch.nn.convert import (
+    disc_from_flax,
     fs2_from_flax,
     hifigan_from_flax,
+    hifigan_to_flax,
     load_vocoder_checkpoint,
     rank_from_flax,
 )
@@ -23,6 +25,13 @@ from emotts_torch.nn.hifigan import (
     HiFiGANGenerator,
     ResBlock1,
     generator_structure_from_params,
+)
+from emotts_torch.nn.hifigan_disc import (
+    Discriminators,
+    MultiPeriodDiscriminator,
+    MultiScaleDiscriminator,
+    PeriodDiscriminator,
+    ScaleDiscriminator,
 )
 from emotts_torch.nn.intensity import IntensityExtractor, RankModel
 from emotts_torch.nn.length_regulator import (
@@ -39,8 +48,10 @@ __all__ = [
     "MultiHeadSelfAttention",
     "sequence_mask",
     "sinusoidal_positional_encoding",
+    "disc_from_flax",
     "fs2_from_flax",
     "hifigan_from_flax",
+    "hifigan_to_flax",
     "load_vocoder_checkpoint",
     "rank_from_flax",
     "IntensityExtractor",
@@ -53,6 +64,11 @@ __all__ = [
     "HiFiGANGenerator",
     "ResBlock1",
     "generator_structure_from_params",
+    "Discriminators",
+    "MultiPeriodDiscriminator",
+    "MultiScaleDiscriminator",
+    "PeriodDiscriminator",
+    "ScaleDiscriminator",
     "average_over_durations",
     "length_regulate",
     "phone_index_map",

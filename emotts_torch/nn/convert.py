@@ -1,8 +1,10 @@
 """Weights carried across from the reference (JAX/flax) package.
 
-``fs2_from_flax``, ``rank_from_flax`` and ``hifigan_from_flax`` take the
-reference's parameter trees as nested dicts of numpy arrays and return ``state_dict``s for this
-package's modules.  Nothing here imports the reference: a tree is plain data
+``fs2_from_flax``, ``rank_from_flax``, ``hifigan_from_flax`` and
+``disc_from_flax`` take the reference's parameter trees as nested dicts of
+numpy arrays and return ``state_dict``s for this package's modules;
+``hifigan_to_flax`` goes the other way, for the ``.npz`` a trained vocoder
+is exported to.  Nothing here imports the reference: a tree is plain data
 (``jax.device_get`` of the variables, or the ``.npz`` a vocoder was saved to).
 
 Layout rules:
@@ -16,7 +18,9 @@ Layout rules:
   ``running_mean``/``running_var``;
 * HiFi-GAN kernels keep the reference's (k, in, out) layout (transposed-conv
   kernels time-flipped as stored there); a ResBlock's per-dilation kernels
-  are stacked into (n_d, k, C, C).
+  are stacked into (n_d, k, C, C);
+* discriminator kernels: MPD (5, 1, in, out) → (out, in, 5, 1), MSD
+  (k, in/g, out) → (out, in/g, k), the groups contiguous on both sides.
 """
 
 from __future__ import annotations
@@ -128,6 +132,53 @@ def hifigan_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                 sd[f"{base}.{b_name}"] = _t(np.stack(
                     [np.asarray(block[f"{conv}_{d}_bias"]) for d in range(n_d)]
                 ))
+    return sd
+
+
+def hifigan_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """A :class:`emotts_torch.nn.hifigan.HiFiGANGenerator` state_dict → the
+    reference's ``{'params': tree}`` of numpy arrays (the inverse of
+    :func:`hifigan_from_flax`)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    p = {k: sd[k] for k in ("conv_pre_kernel", "conv_pre_bias",
+                            "conv_post_kernel", "conv_post_bias")}
+    n_ups = len([k for k in sd if k.startswith("up_kernels.")])
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("resblocks.")})
+    n_kernels = n_blocks // n_ups
+    for i in range(n_ups):
+        p[f"up_{i}_kernel"] = sd[f"up_kernels.{i}"]
+        p[f"up_{i}_bias"] = sd[f"up_biases.{i}"]
+        for j in range(n_kernels):
+            base = f"resblocks.{i * n_kernels + j}"
+            block = p[f"resblock_{i}_{j}"] = {}
+            for conv, w_name, b_name in (("convs1", "w1", "b1"),
+                                         ("convs2", "w2", "b2")):
+                for d, (w, b) in enumerate(zip(sd[f"{base}.{w_name}"],
+                                               sd[f"{base}.{b_name}"])):
+                    block[f"{conv}_{d}_kernel"] = w
+                    block[f"{conv}_{d}_bias"] = b
+    return {"params": p}
+
+
+def disc_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The reference trainer's discriminator tree ``{'mpd': {'params': …},
+    'msd': {'params': …}}`` (a gradient tree of the same shape too) →
+    state_dict of :class:`emotts_torch.nn.hifigan_disc.Discriminators`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for part, sub in (("mpd", "period_"), ("msd", "scale_")):
+        tree = variables[part]
+        for path, a in _walk(tree.get("params", tree)):
+            name, conv, leaf = path
+            if not (name.startswith(sub) and conv.startswith("Conv_")):
+                raise ValueError(f"unexpected parameter {part}/{'/'.join(path)}")
+            key = f"{part}.discriminators.{name}.convs.{conv[5:]}"
+            if leaf == "kernel":
+                w = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.transpose(2, 1, 0)
+                sd[f"{key}.weight"] = _t(w)
+            elif leaf == "bias":
+                sd[f"{key}.bias"] = _t(a)
+            else:
+                raise ValueError(f"unexpected parameter {part}/{'/'.join(path)}")
     return sd
 
 

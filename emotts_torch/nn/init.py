@@ -22,9 +22,10 @@ def seeded_init_(module: nn.Module, generator: torch.Generator,
     ``generator`` (on the CPU, then copied to the parameter's device);
     vectors (biases, norm scales) keep their constructed values.
 
-    fan_in follows each layout: (out, in[, k]) for Linear/conv weights and
-    embeddings (fan_in = features), (k, in, out) and (n_d, k, in, out) for
-    the vocoder's kernels.  The trainers start from these weights too
+    fan_in follows each layout: (out, in[, k[, k2]]) for Linear and 1-D or
+    2-D conv weights and embeddings (fan_in = in·k·k2, features for an
+    embedding), (k, in, out) and (n_d, k, in, out) for the generator's
+    kernels.  The trainers start from these weights too
     (``emotts_torch.train.rank_trainer.init_rank_model``)."""
     vocoder = isinstance(module, HiFiGANGenerator)
     for _, p in module.named_parameters():
@@ -34,10 +35,8 @@ def seeded_init_(module: nn.Module, generator: torch.Generator,
             continue  # a ResBlock's stacked biases (n_d, C)
         if vocoder:
             fan_in = p.shape[-2] * p.shape[-3]  # in · k
-        elif p.dim() == 3:
-            fan_in = p.shape[1] * p.shape[2]
         else:
-            fan_in = p.shape[1]
+            fan_in = p.shape[1:].numel()
         w = torch.randn(p.shape, generator=generator, dtype=torch.float32)
         p.copy_((w * (gain / math.sqrt(fan_in))).to(p.device))
     return module

@@ -34,13 +34,22 @@ class AdamW(torch.optim.Optimizer):
     not the same arithmetic (it decays the parameter first and folds the bias
     corrections into the step size), nor would it keep bf16 moments beside
     fp32 parameters.
+
+    ``lr_decay_every`` > 0 decays the learning rate in steps, as
+    ``optax.exponential_decay(lr, lr_decay_every, lr_decay, staircase=True)``:
+    an update uses :func:`staircase_lr` of the number of updates before it
+    (the first uses ``lr``).  Weight decay applies to every parameter given,
+    biases included.
     """
 
     def __init__(self, params: Iterable, lr: float, weight_decay: float = 1e-2,
                  betas=(0.9, 0.999), eps: float = 1e-8,
-                 moment_dtype: torch.dtype = torch.float32):
+                 moment_dtype: torch.dtype = torch.float32,
+                 lr_decay_every: int = 0, lr_decay: float = 1.0):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
-                                      betas=betas, eps=eps))
+                                      betas=betas, eps=eps,
+                                      lr_decay_every=lr_decay_every,
+                                      lr_decay=lr_decay))
         self.moment_dtype = moment_dtype
 
     @torch.no_grad()
@@ -76,9 +85,22 @@ class AdamW(torch.optim.Optimizer):
             torch._foreach_add_(denom, group["eps"])
             torch._foreach_div_(u, denom)
             torch._foreach_add_(u, params, alpha=group["weight_decay"])
-            torch._foreach_add_(params, u, alpha=-group["lr"])
+            lr = group["lr"]
+            if group["lr_decay_every"] > 0:
+                lr = staircase_lr(lr, group["lr_decay"], group["lr_decay_every"],
+                                  count - 1)
+            torch._foreach_add_(params, u, alpha=-lr)
             torch._foreach_copy_(mus, m)  # rounds to the storage dtype
             torch._foreach_copy_(nus, v)
+
+
+def staircase_lr(lr: float, decay: float, every: int, n: int) -> float:
+    """lr · decay^⌊n / every⌋ for update count ``n``, in fp32 as optax's
+    staircase ``exponential_decay`` returns it (the power is rounded once
+    from float64: XLA's fp32 power is that close, where numpy's fp32 power
+    is not)."""
+    power = np.float64(np.float32(decay)) ** (n // every)
+    return float(np.float32(lr) * np.float32(power))
 
 
 def moment_dtype_of(cfg: TrainConfig) -> torch.dtype:

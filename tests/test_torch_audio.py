@@ -206,6 +206,24 @@ def test_mel_full_soft_floor_is_differentiable():
     assert torch.isfinite(y.grad).all() and y.grad.abs().sum() > 0
 
 
+def test_mel_full_is_differentiable_after_preprocessing_under_inference_mode():
+    """The device constants are cached per (config, device): made first by
+    preprocessing under inference_mode, they still serve the vocoder
+    trainer's differentiable mel in the same process."""
+    from emotts_torch.audio import mel as tmel
+
+    cfg = AudioConfig()
+    tmel._device_constants.cache_clear()
+    try:
+        with torch.inference_mode():
+            ta.mel_energy(torch.zeros(1, 2048), torch.full((1,), 2048), cfg)
+        y = torch.full((1, 2048), 0.01, requires_grad=True)
+        ta.mel_full(y * torch.arange(2048.0).sin(), cfg, floor="soft").sum().backward()
+    finally:
+        tmel._device_constants.cache_clear()
+    assert torch.isfinite(y.grad).all() and y.grad.abs().sum() > 0
+
+
 def test_mel_filterbank_and_frames_equal_the_reference():
     cfg, jcfg = AudioConfig(), JaxAudioConfig()
     np.testing.assert_array_equal(

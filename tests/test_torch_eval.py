@@ -383,3 +383,25 @@ def test_evaluator_rows_match_jax(setup, evaluators, conditioning, monkeypatch, 
         assert report.get(key) == jreport.get(key)
     with pytest.raises(ValueError):
         ev.run(conditioning="nearest")
+
+
+def test_predicted_mel_pairs_match_jax(setup, evaluators, monkeypatch):
+    """The vocoder fine-tune's (teacher-forced FS2 mel, trimmed waveform)
+    pairs over the train split: the same utterances, the mels within 1e-4,
+    the waveforms equal (the fixture's evaluators stand in for the ones
+    predicted_mel_pairs would build)."""
+    import emotts.train.vocoder_trainer as jvt
+    import emotts_torch.train.vocoder_trainer as tvt
+
+    jax_ev, ev = evaluators
+    monkeypatch.setattr(jev, "Evaluator", lambda *args, **kwargs: jax_ev)
+    monkeypatch.setattr(tev, "Evaluator", lambda *args, **kwargs: ev)
+    want = jvt.predicted_mel_pairs(setup["jcfg"], "fs2", "rank")
+    got = tvt.predicted_mel_pairs(setup["tcfg"], setup["fs2_exp"], setup["rank_exp"],
+                                  device="cpu")
+    assert len(got) == len(want) > 2
+    for (mel, wav), (jmel, jwav) in zip(got, want):
+        assert mel.shape == jmel.shape and mel.shape[0] * 256 == wav.size
+        np.testing.assert_allclose(mel, jmel, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(wav, jwav)
+    assert len(tvt.predicted_mel_pairs(setup["tcfg"], max_utts=2, device="cpu")) == 2

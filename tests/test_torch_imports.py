@@ -43,7 +43,8 @@ def test_there_are_sources_to_check():
                    "emotts_torch/audio/f0.py", "emotts_torch/audio/native.py",
                    "emotts_torch/data/preprocess.py", "emotts_torch/cli/prepare_corpus.py",
                    "emotts_torch/eval/evaluate.py", "emotts_torch/eval/intensity_eval.py",
-                   "emotts_torch/eval/metrics.py"):
+                   "emotts_torch/eval/metrics.py", "emotts_torch/nn/hifigan_disc.py",
+                   "emotts_torch/losses/gan.py", "emotts_torch/train/vocoder_trainer.py"):
         assert needed in names
 
 
