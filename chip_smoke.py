@@ -69,6 +69,22 @@ a non-zero exit:
 20. serve_trained_vocoder  the fine-tune's vocoder.npz through
               load_synthesizer (MRF and ResBlock kernels) against the plain
               generator on the same .npz, launches
+21. cli       the emotts-torch command (emotts_torch/cli/main.py) at
+              Config() widths with both attention kernel flags on, over phase
+              15's raw corpus: prepare-corpus, preprocess (the device mel
+              by default on the card),
+              fs2-splits, train-rank (one epoch, profile_epoch=0: the trace
+              names the attention kernels), bucketize, train-vocoder (5
+              steps), train-fs2 (one epoch), the 60-utterance sweep,
+              synthesize --text-file --stream, evaluate --conditioning
+              prototype, eval-intensity (--plot exits 2 without matplotlib),
+              import-reference of full-width reference-layout rank and FS2
+              checkpoints and convert-vocoder of a weight-normed V1 .pt made
+              from the seed (serving the .pt equals serving its .npz bit for
+              bit), each in process with its launches, and its fp32
+              attention launches, against the forwards that make them; then
+              serve (health, one request) and g2p as
+              ``python -m emotts_torch.cli.main`` subprocesses
 
 The last line is {"ok": true, "device": {...}}; before it stand the card line
 and one {"kernels": [...]} line.  Without a GPU the script exits non-zero and
@@ -78,6 +94,7 @@ prints no result.
 import base64
 import copy
 import glob
+import inspect
 import io
 import json
 import math
@@ -848,23 +865,30 @@ def rank_config(root, compute_dtype="bfloat16"):
 class ModuleCounter:
     """Counts forwards of every module of a class (every IntensityExtractor,
     every FastSpeech2), to say how many attention launches to expect;
-    ``training_forwards`` are those called with ``deterministic=False``, each
-    followed by one backward in a train step.  ``fp32_forwards`` and
-    ``fp32_training_forwards`` count those of modules that compute in fp32,
-    whose attention takes the kernels' fp32 instances."""
+    ``training_forwards`` are those called with ``deterministic=False`` (by
+    keyword or position), each followed by one backward in a train step.
+    ``fp32_forwards`` and ``fp32_training_forwards`` count those of modules
+    that compute in fp32, whose attention takes the kernels' fp32 instances.
+    With ``launches``, ``launched`` lists ``launches(module)`` of every
+    forward (a generator's MRF and ResBlock launches by its structure)."""
 
-    def __init__(self, cls):
+    def __init__(self, cls, launches=None):
         self.forwards = self.training_forwards = 0
         self.fp32_forwards = self.fp32_training_forwards = 0
+        self.launched = []
+        signature = inspect.signature(cls.forward)
 
         def hook(module, args, kwargs, output):
             if isinstance(module, cls):
-                training = kwargs.get("deterministic") is False
+                called = signature.bind(module, *args, **kwargs).arguments
+                training = called.get("deterministic") is False
                 fp32 = getattr(module, "dtype", None) == torch.float32
                 self.forwards += 1
                 self.training_forwards += training
                 self.fp32_forwards += fp32
                 self.fp32_training_forwards += fp32 and training
+                if launches is not None:
+                    self.launched.append(launches(module))
 
         self._hook = torch.nn.modules.module.register_module_forward_hook(
             hook, with_kwargs=True)
@@ -2421,6 +2445,450 @@ def vocoder_phases(root, fs2_exp, rank_exp, dev):
     return launches, fp32_attention_launches()
 
 
+# --------------------------------------------------------------------------
+# phase 21: the emotts-torch command over phase 15's raw corpus
+# --------------------------------------------------------------------------
+
+KERNELS = ("fused_attention", "fused_attention_bwd", "fused_mrf_stage",
+           "fused_resblock1")
+CLI_TEXT = "The ship was quiet tonight. Nobody had slept for two days."
+SWEEP_TEXT = "Good morning."
+
+
+def cli_config(root):
+    """Config() widths (FS2 6+6 layers, d_model 384, 2 heads; the rank
+    model's 6 layers; HiFi-GAN V1) with both attention kernel flags on, over
+    phase 15's raw corpus (``raw/``, ``aligned/``) and a fresh
+    ``cli/{corpus,features,experiments,demo}``: ``data.device_mel`` left
+    off (``preprocess`` on the card takes the device mel by itself), one
+    epoch of each trainer, the vocoder the chain trains."""
+    cfg = raw_config(root)
+    base = os.path.join(root, "cli")
+    d = cfg.data
+    d.corpus_path = os.path.join(base, "corpus")
+    d.preprocessed_path = os.path.join(base, "features")
+    d.experiment_path = os.path.join(base, "experiments")
+    cfg.fastspeech2.fused_attention = cfg.rank_model.fused_attention = True
+    cfg.train_rank.n_epochs = cfg.train_fs2.n_epochs = 1
+    cfg.inference.rank_exp = cfg.inference.fs2_exp = "exp_1"
+    cfg.inference.output_path = os.path.join(base, "demo")
+    cfg.inference.vocoder_checkpoint = os.path.join(
+        d.experiment_path, "vocoder", "exp_1", "vocoder.npz")
+    return cfg
+
+
+def _normal(rng, *shape, scale=0.02):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+
+
+def reference_rank_state_dict(cfg, rng):
+    """A rank model's state_dict in the reference's key layout
+    (``intensity_extractor.fft_block.layers.N.self_attn`` packed in_proj,
+    ``conv1``/``conv2``, ``norm1``/``norm2``; ``projector`` without bias) at
+    ``cfg``'s widths, values from ``rng``."""
+    rm = cfg.rank_model
+    h, ffn, k, n_emo = rm.hidden_dim, rm.hidden_dim * rm.ffn_mult, rm.kernel_size, cfg.n_emotions
+    ext = "intensity_extractor"
+    sd = {f"{ext}.input_proj.weight": _normal(rng, h, cfg.audio.n_mels + 2),
+          f"{ext}.input_proj.bias": _normal(rng, h)}
+    for i in range(rm.n_encoder_layers):
+        lp = f"{ext}.fft_block.layers.{i}"
+        sd.update({
+            f"{lp}.self_attn.in_proj_weight": _normal(rng, 3 * h, h),
+            f"{lp}.self_attn.in_proj_bias": _normal(rng, 3 * h),
+            f"{lp}.self_attn.out_proj.weight": _normal(rng, h, h),
+            f"{lp}.self_attn.out_proj.bias": _normal(rng, h),
+            f"{lp}.conv1.weight": _normal(rng, ffn, h, k),
+            f"{lp}.conv1.bias": _normal(rng, ffn),
+            f"{lp}.conv2.weight": _normal(rng, h, ffn, k),
+            f"{lp}.conv2.bias": _normal(rng, h)})
+        for norm in ("norm1", "norm2"):
+            sd[f"{lp}.{norm}.weight"] = 1.0 + _normal(rng, h)
+            sd[f"{lp}.{norm}.bias"] = _normal(rng, h)
+    sd.update({f"{ext}.emotion_embedding.weight": _normal(rng, n_emo, h),
+               f"{ext}.classifier.weight": _normal(rng, n_emo, h),
+               f"{ext}.classifier.bias": _normal(rng, n_emo),
+               "projector.weight": _normal(rng, 1, n_emo)})
+    return sd
+
+
+def reference_fs2_state_dict(cfg, rng):
+    """A FastSpeech2 state_dict in the reference's SpeechBrain key layout
+    (``.w`` linears, ``.conv`` convs, ``.Embedding``, ``self_att.att``,
+    ``pos_ffn.{0,2}``, ``.norm`` LayerNorms; plain LayerNorms in the
+    predictors and the PostNet, ``convs_intermedite``) at ``cfg``'s widths,
+    values from ``rng``.  The duration predictor's output bias is log1p(4):
+    about four frames a phone, a choice of weights as in seeded_weights."""
+    f = cfg.fastspeech2
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[f"{name}.conv.weight"] = _normal(rng, cout, cin, k)
+        sd[f"{name}.conv.bias"] = _normal(rng, cout)
+
+    def norm(name, n):
+        sd[f"{name}.weight"] = 1.0 + _normal(rng, n)
+        sd[f"{name}.bias"] = _normal(rng, n)
+
+    def stack(prefix, layers, d, ffn):
+        for i in range(layers):
+            lp = f"{prefix}.layers.{i}"
+            sd[f"{lp}.self_att.att.in_proj_weight"] = _normal(rng, 3 * d, d)
+            sd[f"{lp}.self_att.att.in_proj_bias"] = _normal(rng, 3 * d)
+            sd[f"{lp}.self_att.att.out_proj.weight"] = _normal(rng, d, d)
+            sd[f"{lp}.self_att.att.out_proj.bias"] = _normal(rng, d)
+            conv(f"{lp}.pos_ffn.0", ffn, d, f.ffn_kernel_sizes[0])
+            conv(f"{lp}.pos_ffn.2", d, ffn, f.ffn_kernel_sizes[1])
+            norm(f"{lp}.norm1.norm", d)
+            norm(f"{lp}.norm2.norm", d)
+        norm(f"{prefix}.norm.norm", d)
+
+    d = f.enc_d_model
+    sd["encPreNet.token_embedding.Embedding.weight"] = _normal(rng, f.n_char, d, scale=1.0)
+    stack("encoder", f.enc_num_layers, d, f.enc_ffn_dim)
+    stack("decoder", f.dec_num_layers, f.dec_d_model, f.dec_ffn_dim)
+    sd["speaker_emb.Embedding.weight"] = _normal(rng, cfg.n_speakers, d, scale=1.0)
+    sd["concat_proj.w.weight"] = _normal(rng, d, 2 * d + cfg.n_emotions, scale=0.05)
+    for name, k in (("durPred", f.dur_pred_kernel_size),
+                    ("pitchPred", f.pitch_pred_kernel_size),
+                    ("energyPred", f.energy_pred_kernel_size)):
+        conv(f"{name}.conv1", d, d, k)
+        conv(f"{name}.conv2", d, d, k)
+        norm(f"{name}.ln1", d)
+        norm(f"{name}.ln2", d)
+        sd[f"{name}.linear.w.weight"] = _normal(rng, 1, d)
+        sd[f"{name}.linear.w.bias"] = _normal(rng, 1)
+    sd["durPred.linear.w.bias"].fill_(math.log1p(4.0))
+    conv("pitchEmbed", d, 1, f.pitch_pred_kernel_size)
+    conv("energyEmbed", d, 1, f.energy_pred_kernel_size)
+    sd["linear.w.weight"] = _normal(rng, f.n_mels, f.dec_d_model, scale=0.05)
+    sd["linear.w.bias"] = _normal(rng, f.n_mels)
+    p, k = f.postnet_embedding_dim, f.postnet_kernel_size
+    conv("postnet.conv_pre", p, f.n_mels, k)
+    for i in range(f.postnet_n_convolutions - 2):
+        conv(f"postnet.convs_intermedite.{i}", p, p, k)
+    conv("postnet.conv_post", f.n_mels, p, k)
+    norm("postnet.ln1", p)
+    norm("postnet.ln2", p)
+    norm("postnet.ln3", f.n_mels)
+    return sd
+
+
+def weight_normed_generator(rng, n_mels, ch0, upsample_kernel_sizes,
+                            resblock_kernel_sizes, resblock_dilations,
+                            v_scale=1.0, g_scale=0.1):
+    """A torch HiFi-GAN generator state_dict in the official weight-normed
+    layout (``conv_pre``, ``ups.N``, ``resblocks.M.convs{1,2}.D``,
+    ``conv_post``, each as ``weight_g``/``weight_v`` and ``bias``) of the
+    given structure, values from ``rng``: ``weight_v`` N(0, v_scale²),
+    ``weight_g`` 0.5 + |N(0, g_scale²)|, biases N(0, 0.01²).  The port's
+    tests build their small generators here too."""
+    sd = {}
+
+    def add(name, out_ch, in_ch, k, transpose=False):
+        shape = (in_ch, out_ch, k) if transpose else (out_ch, in_ch, k)
+        sd[f"{name}.weight_v"] = _normal(rng, *shape, scale=v_scale)
+        sd[f"{name}.weight_g"] = 0.5 + _normal(rng, shape[0], 1, 1, scale=g_scale).abs()
+        sd[f"{name}.bias"] = _normal(rng, out_ch, scale=0.01)
+
+    ch = ch0
+    add("conv_pre", ch, n_mels, 7)
+    n_k = len(resblock_kernel_sizes)
+    for i, ku in enumerate(upsample_kernel_sizes):
+        add(f"ups.{i}", ch // 2, ch, ku, transpose=True)
+        ch //= 2
+        for j, (k, dils) in enumerate(zip(resblock_kernel_sizes, resblock_dilations)):
+            for d in range(len(dils)):
+                for conv in ("convs1", "convs2"):
+                    add(f"resblocks.{i * n_k + j}.{conv}.{d}", ch, ch, k)
+    add("conv_post", 1, ch, 7)
+    return sd
+
+
+def read_pcm(path):
+    with wave.open(path, "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def wait_for_line(proc, marker, seconds):
+    """The first line of ``proc``'s standard output that holds ``marker``;
+    fails if the process ends or the time runs out first."""
+    import select
+
+    deadline = time.monotonic() + seconds
+    while True:
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"no {marker!r} line (exit code {proc.poll()})")
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if ready:
+            line = proc.stdout.readline()
+            if marker in line:
+                return line
+
+
+def cli_serve(cfg_path, dev, log_path):
+    """``python -m emotts_torch.cli.main serve --port 0`` as a subprocess:
+    the time to its listening line (the kernels built already), /health
+    and one POST /synthesize; the process is stopped in every case."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "emotts_torch.cli.main", "serve", "--config",
+             cfg_path, "--device", dev.type, "--port", "0"],
+            cwd=here, stdout=subprocess.PIPE, stderr=log, text=True)
+        try:
+            line = wait_for_line(proc, "[serve] listening on", 300)
+            cold_s = time.perf_counter() - t0
+            base = line.split("listening on ")[1].split()[0]
+            with urllib.request.urlopen(base + "/health", timeout=60) as r:
+                health = json.loads(r.read())
+            if health["status"] != "ok" or not health["vocoder"]:
+                raise AssertionError(f"serve /health: {health}")
+            body, ms = post(base, "/synthesize", {"text": CLI_TEXT, "speaker": "bea",
+                                                  "emotion": "amused", "level": 1})
+            pcm, sr = wav_samples(body)
+            if pcm.size == 0 or np.abs(pcm.astype(np.int32)).max() == 0:
+                raise AssertionError("serve: empty or silent audio")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    return dict(cold_start_s=cold_s, first_request_ms=ms, samples=int(pcm.size),
+                sample_rate=sr, exit_code=proc.returncode)
+
+
+def cli_phase(root, dev, sweep_wall_ms):
+    """The emotts-torch command over phase 15's raw corpus at Config()
+    widths: the training chain and the serving and evaluation commands in
+    process through ``main([...])`` (each with the counters set to 0 just
+    before it and read just after, against the launches its forwards make),
+    the importers on full-width reference checkpoints made from SEED, then
+    ``serve`` and ``g2p`` as subprocesses.  Returns the path's launches,
+    its fp32 attention launches and the report."""
+    import contextlib
+
+    import emotts_torch.data.preprocess as prep
+    from emotts_torch.cli.main import main as cli
+    from emotts_torch.infer.synthesize import Synthesizer
+    from emotts_torch.nn.fastspeech2 import FastSpeech2
+    from emotts_torch.nn.hifigan import HiFiGANGenerator
+    from emotts_torch.nn.intensity import IntensityExtractor
+    from emotts_torch.ops import attention, mrf, resblock
+    from emotts_torch.utils.config import save_config
+    from emotts_torch.utils.plotting import have_matplotlib
+
+    t_phase = time.perf_counter()
+    cfg = cli_config(root)
+    base = os.path.dirname(cfg.data.corpus_path)
+    os.makedirs(base, exist_ok=True)
+    cfg_path = os.path.join(base, "cli.yaml")
+    save_config(cfg, cfg_path)
+    with open(os.path.join(base, "story.txt"), "w") as f:
+        f.write(CLI_TEXT)
+    exp = cfg.data.experiment_path
+    rank_exp = os.path.join(exp, "rank_model", "exp_1")
+    fs2_exp = os.path.join(exp, "fastspeech2", "exp_1")
+    demo = cfg.inference.output_path
+    common = ["--config", cfg_path, "--device", dev.type]
+    longform = ["--text-file", os.path.join(base, "story.txt"), "--speaker", "josh",
+                "--emotion", "angry", "--level", "1.5"]
+    imported = ["inference.rank_exp=imported", "inference.fs2_exp=imported",
+                "fastspeech2.prenet_style=embedding",
+                "fastspeech2.postnet_style=speechbrain"]
+    plot_rc = 0 if have_matplotlib() else 2
+    f2 = cfg.fastspeech2
+    layers = dict(fs2=f2.enc_num_layers + f2.dec_num_layers,
+                  extractor=cfg.rank_model.n_encoder_layers)
+    totals = dict.fromkeys(KERNELS, 0)
+    fp32 = dict(fused_attention=0, fused_attention_bwd=0)
+    commands = []
+    sweep_ms = []
+    inner_sweep = Synthesizer.intensity_sweep
+
+    def timed_sweep(self, *args, **kwargs):
+        t = time.perf_counter()
+        out = inner_sweep(self, *args, **kwargs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        sweep_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def run(name, argv, want_rc=0):
+        """One command in process, its launches against those its forwards
+        make: the attention forward a layer per FastSpeech2 and extractor
+        forward, the backward BWD_LAUNCHES_PER_CALL a layer per training
+        forward, MRF and ResBlock by ``vocoder_launches`` per generator
+        forward (a plain generator's come to 0); the fp32 ones apart."""
+        zero_counts(attention, mrf, resblock)
+        counters = dict(fs2=ModuleCounter(FastSpeech2),
+                        extractor=ModuleCounter(IntensityExtractor))
+        generator = ModuleCounter(HiFiGANGenerator, launches=vocoder_launches)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli(argv)
+        finally:
+            for c in (*counters.values(), generator):
+                c.close()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counted = dict(fused_attention=attention.launch_count,
+                       fused_attention_bwd=attention.bwd_launch_count,
+                       fused_mrf_stage=mrf.launch_count,
+                       fused_resblock1=resblock.launch_count)
+        expected = dict(
+            fused_attention=sum(layers[n] * c.forwards for n, c in counters.items()),
+            fused_attention_bwd=attention.BWD_LAUNCHES_PER_CALL * sum(
+                layers[n] * c.training_forwards for n, c in counters.items()),
+            fused_mrf_stage=sum(m for m, _ in generator.launched),
+            fused_resblock1=sum(r for _, r in generator.launched))
+        fp32_here = dict(counted=fp32_attention_launches(),
+                         expected=expected_fp32_launches(counters, layers))
+        for k, v in fp32_here["counted"].items():
+            fp32[k] += v
+        for k in KERNELS:
+            totals[k] += counted[k]
+        lines = out.getvalue().strip().splitlines()
+        commands.append(dict(name=name, argv=argv[0], rc=rc, seconds=seconds,
+                             launches=counted, expected=expected, fp32=fp32_here,
+                             last_line=lines[-1] if lines else ""))
+        if rc != want_rc:
+            raise AssertionError(f"cli {name}: exit code {rc}, expected {want_rc}; "
+                                 f"output: {out.getvalue()[-2000:]}")
+        if dev.type == "cuda" and (counted != expected
+                                   or fp32_here["counted"] != fp32_here["expected"]):
+            raise AssertionError(f"cli {name}: launches {counted}, expected {expected}; "
+                                 f"fp32 {fp32_here}")
+
+    # the training chain
+    rng = np.random.default_rng(SEED)
+    mel_devices = []  # preprocess's mel batches, by device
+    inner_mel = prep._device_mel_batch
+
+    def device_mel_batch(cfg_, extracted, device):
+        mel_devices.append(device.type)
+        return inner_mel(cfg_, extracted, device)
+
+    run("prepare-corpus", ["prepare-corpus", *common])
+    prep._device_mel_batch = device_mel_batch
+    try:
+        run("preprocess", ["preprocess", *common])
+    finally:
+        prep._device_mel_batch = inner_mel
+    if dev.type == "cuda" and (not mel_devices or set(mel_devices) != {"cuda"}):
+        raise AssertionError(f"preprocess without data.device_mel took the mel on "
+                             f"{sorted(set(mel_devices))}, not on the card")
+    run("fs2-splits", ["fs2-splits", *common])
+    run("train-rank", ["train-rank", *common, "train_rank.max_iterations=8",
+                       "train_rank.profile_epoch=0"])
+    run("bucketize", ["bucketize", *common])
+    run("train-vocoder", ["train-vocoder", *common, "train_vocoder.n_steps=5"])
+    run("train-fs2", ["train-fs2", *common, "train_fs2.max_iterations=5"])
+    # serving and evaluation
+    Synthesizer.intensity_sweep = timed_sweep
+    try:
+        run("synthesize", ["synthesize", *common])
+    finally:
+        Synthesizer.intensity_sweep = inner_sweep
+    run("synthesize --stream", ["synthesize", *common, *longform, "--stream"])
+    # the intensity sweeps on a short sentence: one epoch of FS2 training
+    # leaves its durations long, and the sweep's F0 runs on the host
+    run("evaluate", ["evaluate", *common, "--conditioning", "prototype",
+                     f"inference.text={SWEEP_TEXT}"])
+    run("eval-intensity", ["eval-intensity", *common, "--text", SWEEP_TEXT])
+    run("eval-intensity --plot", ["eval-intensity", *common, "--text", SWEEP_TEXT,
+                                  "--plot", os.path.join(base, "sweep.png")], plot_rc)
+    # the importers at full width, then synthesis from what they wrote
+    files = {name: os.path.join(base, name) for name in (
+        "rank_best.pth", "fs2_best.pth", "intensity.npy", "generator_v1.pt",
+        "generator_v1.npz")}
+    torch.save(reference_rank_state_dict(cfg, rng), files["rank_best.pth"])
+    torch.save(reference_fs2_state_dict(cfg, rng), files["fs2_best.pth"])
+    np.save(files["intensity.npy"], rng.standard_normal(
+        (cfg.n_speakers, cfg.n_emotions, cfg.inference.bucket_size,
+         cfg.n_emotions)).astype(np.float32))
+    v = cfg.train_vocoder
+    torch.save(weight_normed_generator(
+        rng, cfg.audio.n_mels, v.upsample_initial_channel, v.upsample_kernel_sizes,
+        v.resblock_kernel_sizes, v.resblock_dilations), files["generator_v1.pt"])
+    run("import-reference", ["import-reference", *common, *imported,
+                             "--rank-checkpoint", files["rank_best.pth"],
+                             "--fs2-checkpoint", files["fs2_best.pth"],
+                             "--intensity", files["intensity.npy"]])
+    run("convert-vocoder", ["convert-vocoder", *common, "--checkpoint",
+                            files["generator_v1.pt"], "--output",
+                            files["generator_v1.npz"]])
+    wavs = {}
+    for ext in (".pt", ".npz"):
+        out = os.path.join(base, f"imported{ext.replace('.', '_')}")
+        run(f"synthesize --text-file (imported, {ext})",
+            ["synthesize", *common, *longform, *imported,
+             f"inference.vocoder_checkpoint={files['generator_v1' + ext]}",
+             f"inference.output_path={out}"])
+        wavs[ext] = read_pcm(os.path.join(out, "longform_josh_angry_1.5.wav"))
+
+    # what the commands wrote
+    trace_path = os.path.join(rank_exp, "profile", "trace.json")
+    with open(trace_path) as f:
+        trace = f.read()
+    kernel_names = sorted({n for n in ("attention_fwd_", "attention_bwd_") if n in trace})
+    if dev.type == "cuda" and len(kernel_names) != 2:
+        raise AssertionError(f"the train-rank profile names {kernel_names} of the "
+                             "attention kernels")
+    for path in (os.path.join(rank_exp, "best"), os.path.join(rank_exp, "intensity.npy"),
+                 os.path.join(fs2_exp, "best"), cfg.inference.vocoder_checkpoint):
+        if not os.path.exists(path):
+            raise AssertionError(f"cli: {path} was not written")
+    n_sweep = cfg.n_speakers * cfg.n_emotions * cfg.inference.bucket_size
+    sweep_wavs = glob.glob(os.path.join(demo, "*.wav"))
+    # the sweep's files and the streamed long-form file
+    if len(sweep_wavs) != n_sweep + 1:
+        raise AssertionError(f"cli synthesize wrote {len(sweep_wavs)} wavs, "
+                             f"expected {n_sweep} and the long-form one")
+    with open(os.path.join(fs2_exp, "eval.json")) as f:
+        report = json.load(f)
+    _finite_report(report, "cli eval.json")
+    if "intensity_efficacy" not in report or report["n_utterances"] == 0:
+        raise AssertionError("cli eval.json lacks its rows or the intensity report")
+    pt, npz = wavs[".pt"], wavs[".npz"]
+    if pt.size == 0 or np.abs(pt.astype(np.int32)).max() == 0:
+        raise AssertionError("the imported models synthesized empty or silent audio")
+    if pt.shape != npz.shape or not np.array_equal(pt, npz):
+        raise AssertionError("the .pt vocoder does not serve as its .npz bit for bit")
+
+    # two subprocesses
+    serve = cli_serve(cfg_path, dev, os.path.join(base, "serve.log"))
+    t0 = time.perf_counter()
+    g2p = subprocess.run(
+        [sys.executable, "-m", "emotts_torch.cli.main", "g2p", "--config", cfg_path,
+         "--text", CLI_TEXT], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300)
+    g2p_s = time.perf_counter() - t0
+    if g2p.returncode != 0 or not g2p.stdout.strip().splitlines()[-1].startswith("[g2p] "):
+        raise AssertionError(f"g2p: exit code {g2p.returncode}: {g2p.stderr[-2000:]}")
+
+    if dev.type == "cuda" and min(totals.values()) == 0:
+        raise AssertionError(f"the cli path launched a kernel no time: {totals}")
+    return totals, fp32, dict(
+        seconds=time.perf_counter() - t_phase, commands=commands,
+        sweep=dict(utterances=n_sweep, intensity_sweep_ms=sweep_ms[0],
+                   command_s=next(c["seconds"] for c in commands
+                                  if c["name"] == "synthesize"),
+                   phase_5_sweep_ms=sweep_wall_ms),
+        preprocess=dict(device_mel_batches=len(mel_devices)),
+        profile=dict(trace_bytes=len(trace), attention_kernels_named=kernel_names),
+        imported=dict(samples=int(pt.size), pt_equals_npz=True),
+        eval_intensity_plot=dict(have_matplotlib=plot_rc == 0, exit_code=plot_rc),
+        serve=serve, g2p=dict(seconds=g2p_s, last_line=g2p.stdout.strip().splitlines()[-1]),
+        launches=totals, fp32_launches=fp32)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
@@ -2476,7 +2944,8 @@ def main():
     counter = ForwardCounter(synth)
     health, served = serve_phase(cfg, synth)
     emit("serve", health=health, requests=served)
-    emit("sweep", **sweep_phase(cfg, synth))
+    sweep = sweep_phase(cfg, synth)
+    emit("sweep", **sweep)
     launches = dict(fused_attention=attention.launch_count,
                     fused_mrf_stage=mrf.launch_count,
                     fused_resblock1=resblock.launch_count)
@@ -2574,13 +3043,20 @@ def main():
         # -- 17-20. vocoder training, its parity, the fine-tune, serving it ----
         voc_launches, fp32_by_path["vocoder_training"] = vocoder_phases(
             root, fs2_exp, exp, dev)
+        torch.cuda.empty_cache()
+
+        # -- 21. the emotts-torch command --------------------------------------
+        cli_launches, fp32_by_path["cli"], cli_report = cli_phase(
+            root, dev, sweep["wall_ms"])
+        emit("cli", **cli_report)
 
     # -- summary ---------------------------------------------------------------
     # a kernel's launches over the counted paths
     serve_launches = dict(launches)
     by_path = dict(serving=serve_launches, training=train_launches,
                    fs2_training=fs2_launches, streaming=stream_launches,
-                   evaluation=eval_launches, vocoder_training=voc_launches)
+                   evaluation=eval_launches, vocoder_training=voc_launches,
+                   cli=cli_launches)
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in ("fused_attention", "fused_attention_bwd",
                              "fused_mrf_stage", "fused_resblock1")}

@@ -1,6 +1,6 @@
-"""Command-line stages of the port.  So far only corpus preparation
-(``prepare_corpus``); the ``emotts`` command itself (``emotts/cli/main.py``)
-is still to be ported."""
+"""The ``emotts-torch`` command (``emotts_torch.cli.main``, run as
+``python -m emotts_torch.cli.main``) and corpus preparation
+(``prepare_corpus``)."""
 
 from emotts_torch.cli.prepare_corpus import parse_transcript_index, prepare_corpus
 

@@ -659,12 +659,13 @@ def load_synthesizer(cfg: Config, fs2_exp: Optional[str] = None,
                      device: str = "cuda") -> Synthesizer:
     """Assemble a Synthesizer from this package's experiment directories:
     the FS2 experiment's ``best/`` export, the rank experiment's
-    ``intensity.npy`` (absent: neutral conditioning) and the ``.npz``
-    vocoder checkpoint of ``inference.vocoder_checkpoint`` (absent: mels
-    only).  The directories default to ``<experiment_path>/fastspeech2/
-    <inference.fs2_exp>`` and ``<experiment_path>/rank_model/
-    <inference.rank_exp>``.  On a CUDA device the loaded generator runs
-    through the vocoder kernels (``fused_mrf``, ``use_pallas_resblocks``)."""
+    ``intensity.npy`` (absent: neutral conditioning) and the vocoder
+    checkpoint of ``inference.vocoder_checkpoint``, ``.npz`` or torch
+    ``.pt`` (absent: mels only).  The directories default to
+    ``<experiment_path>/fastspeech2/<inference.fs2_exp>`` and
+    ``<experiment_path>/rank_model/<inference.rank_exp>``.  On a CUDA
+    device the loaded generator runs through the vocoder kernels
+    (``fused_mrf``, ``use_pallas_resblocks``)."""
     fs2_exp = fs2_exp or os.path.join(
         cfg.data.experiment_path, "fastspeech2", cfg.inference.fs2_exp)
     rank_exp = rank_exp or os.path.join(

@@ -21,6 +21,16 @@ Layout rules:
   are stacked into (n_d, k, C, C);
 * discriminator kernels: MPD (5, 1, in, out) → (out, in, 5, 1), MSD
   (k, in/g, out) → (out, in/g, k), the groups contiguous on both sides.
+
+``rank_params_from_torch`` and ``fs2_params_from_reference_torch`` import
+checkpoints trained with the reference's own PyTorch code (its rank model's
+and its SpeechBrain-built FastSpeech2's ``best_model.pth``): they return the
+same flax-layout numpy trees as ``emotts/nn/convert.py``, which
+``rank_from_flax`` / ``fs2_from_flax`` then turn into state_dicts.  There a
+torch ``Linear`` weight (out, in) becomes a Dense kernel (in, out), a packed
+``MultiheadAttention`` ``in_proj`` (3H, H) the per-head q/k/v kernels
+(H, heads, head_dim) and ``out_proj`` (heads, head_dim, H), a ``Conv1d``
+weight (out, in, k) a Conv kernel (k, in, out).
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from emotts_torch.nn.hifigan import convert_torch_state_dict
 
 _INDEXED = re.compile(r"^(layer|conv|norm|bn|conv_mid)_(\d+)$")
 _PLURAL = {"layer": "layers", "conv": "convs", "norm": "norms", "bn": "bns",
@@ -182,14 +194,239 @@ def disc_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+# ---------------------------------------------------------------------------
+# Reference (PyTorch) checkpoints → the flax-layout trees above
+# ---------------------------------------------------------------------------
+
+
+def _dense(sd, prefix):
+    return {
+        "kernel": np.asarray(sd[f"{prefix}.weight"]).T,
+        "bias": np.asarray(sd[f"{prefix}.bias"]),
+    }
+
+
+def _conv(sd, prefix):
+    return {
+        "kernel": np.transpose(np.asarray(sd[f"{prefix}.weight"]), (2, 1, 0)),
+        "bias": np.asarray(sd[f"{prefix}.bias"]),
+    }
+
+
+def _layernorm(sd, prefix):
+    return {
+        "scale": np.asarray(sd[f"{prefix}.weight"]),
+        "bias": np.asarray(sd[f"{prefix}.bias"]),
+    }
+
+
+def _attention(sd, prefix, n_heads: int) -> Dict:
+    w_in = np.asarray(sd[f"{prefix}.in_proj_weight"])  # (3H, H)
+    b_in = np.asarray(sd[f"{prefix}.in_proj_bias"])  # (3H,)
+    h3, hidden = w_in.shape
+    if h3 != 3 * hidden:
+        raise ValueError(f"{prefix}.in_proj_weight has shape {w_in.shape}, "
+                         "not (3H, H)")
+    d = hidden // n_heads
+
+    def split(mat, vec, i):
+        w = mat[i * hidden:(i + 1) * hidden]  # (H, H): out × in
+        b = vec[i * hidden:(i + 1) * hidden]
+        return {
+            "kernel": w.T.reshape(hidden, n_heads, d),
+            "bias": b.reshape(n_heads, d),
+        }
+
+    w_out = np.asarray(sd[f"{prefix}.out_proj.weight"])  # (H, H)
+    b_out = np.asarray(sd[f"{prefix}.out_proj.bias"])
+    return {
+        "query": split(w_in, b_in, 0),
+        "key": split(w_in, b_in, 1),
+        "value": split(w_in, b_in, 2),
+        "out": {"kernel": w_out.T.reshape(n_heads, d, hidden), "bias": b_out},
+    }
+
+
+def rank_params_from_torch(sd: Mapping, n_layers: int, n_heads: int) -> Dict:
+    """The reference rank model's state_dict (``intensity_extractor.{
+    input_proj, fft_block.layers.N.{self_attn, conv1, conv2, norm1, norm2},
+    emotion_embedding, classifier}`` and ``projector``, numpy values) →
+    ``{'params': tree}`` of the RankModel."""
+    ext = "intensity_extractor"
+    fft = {}
+    for i in range(n_layers):
+        layer = f"{ext}.fft_block.layers.{i}"
+        fft[f"layer_{i}"] = {
+            "attn": _attention(sd, f"{layer}.self_attn", n_heads),
+            "ffn": {
+                "conv1": _conv(sd, f"{layer}.conv1"),
+                "conv2": _conv(sd, f"{layer}.conv2"),
+            },
+            "norm1": _layernorm(sd, f"{layer}.norm1"),
+            "norm2": _layernorm(sd, f"{layer}.norm2"),
+        }
+    params = {
+        "intensity_extractor": {
+            "input_proj": _dense(sd, f"{ext}.input_proj"),
+            "fft": fft,
+            "emotion_embedding": {
+                "embedding": np.asarray(sd[f"{ext}.emotion_embedding.weight"])
+            },
+            "classifier": _dense(sd, f"{ext}.classifier"),
+        },
+        "projector": {"kernel": np.asarray(sd["projector.weight"]).T},
+    }
+    return {"params": params}
+
+
+# The reference FastSpeech2 is assembled from SpeechBrain wrapper modules whose
+# keys differ from plain torch: ``linear.Linear`` stores its layer as ``.w``,
+# ``CNN.Conv1d`` as ``.conv``, ``Embedding`` as ``.Embedding``, a Transformer
+# layer's attention as ``self_att.att`` and its 1dcnn feed-forward as
+# ``pos_ffn.{0,2}``; LayerNorms appear both as the wrapper (``.norm.weight``)
+# and as plain ``nn.LayerNorm`` (``.weight``).  Every lookup accepts both
+# spellings.  The imported weights run in the compat architecture
+# (``fastspeech2.prenet_style: embedding``, ``postnet_style: speechbrain``).
+
+
+def _get(sd: Mapping, *candidates: str) -> np.ndarray:
+    for c in candidates:
+        if c in sd:
+            return np.asarray(sd[c])
+    raise KeyError(
+        f"none of {candidates} in checkpoint (have e.g. {sorted(sd)[:8]} ...)"
+    )
+
+
+def _sb_conv(sd, p):
+    w = _get(sd, f"{p}.conv.weight", f"{p}.weight")  # (out, in, k)
+    b = _get(sd, f"{p}.conv.bias", f"{p}.bias")
+    return {"kernel": np.transpose(w, (2, 1, 0)), "bias": b}
+
+
+def _sb_dense(sd, p, bias=True):
+    out = {"kernel": _get(sd, f"{p}.w.weight", f"{p}.weight").T}
+    if bias:
+        out["bias"] = _get(sd, f"{p}.w.bias", f"{p}.bias")
+    return out
+
+
+def _sb_ln(sd, p):
+    return {
+        "scale": _get(sd, f"{p}.norm.weight", f"{p}.weight"),
+        "bias": _get(sd, f"{p}.norm.bias", f"{p}.bias"),
+    }
+
+
+def _sb_embed(sd, p):
+    return {"embedding": _get(sd, f"{p}.Embedding.weight", f"{p}.weight")}
+
+
+def fs2_params_from_reference_torch(sd: Mapping, cfg) -> Dict:
+    """The reference FastSpeech2's state_dict (numpy values) →
+    ``{'params': tree, 'batch_stats': {}}`` of the compat FastSpeech2.
+
+    ``cfg`` is the :class:`~emotts_torch.utils.config.FastSpeech2Config` the
+    checkpoint was trained with (layer and head counts, PostNet depth)."""
+
+    def attention(lp, n_heads):
+        for cand in (f"{lp}.self_att.att", f"{lp}.self_attn", f"{lp}.self_att"):
+            if f"{cand}.in_proj_weight" in sd:
+                return _attention(sd, cand, n_heads)
+        raise KeyError(f"no attention weights under {lp}")
+
+    def fft_stack(prefix, n_layers, n_heads):
+        out = {}
+        for i in range(n_layers):
+            lp = f"{prefix}.layers.{i}"
+            out[f"layer_{i}"] = {
+                "attn": attention(lp, n_heads),
+                "ffn": {
+                    "conv1": _sb_conv(sd, f"{lp}.pos_ffn.0"),
+                    "conv2": _sb_conv(sd, f"{lp}.pos_ffn.2"),
+                },
+                "norm1": _sb_ln(sd, f"{lp}.norm1"),
+                "norm2": _sb_ln(sd, f"{lp}.norm2"),
+            }
+        out["final_norm"] = _sb_ln(sd, f"{prefix}.norm")
+        return out
+
+    def predictor(prefix):
+        return {
+            "conv1": _sb_conv(sd, f"{prefix}.conv1"),
+            "norm1": _sb_ln(sd, f"{prefix}.ln1"),
+            "conv2": _sb_conv(sd, f"{prefix}.conv2"),
+            "norm2": _sb_ln(sd, f"{prefix}.ln2"),
+            "out": _sb_dense(sd, f"{prefix}.linear"),
+        }
+
+    postnet = {
+        "conv_pre": _sb_conv(sd, "postnet.conv_pre"),
+        "conv_post": _sb_conv(sd, "postnet.conv_post"),
+        "ln1": _sb_ln(sd, "postnet.ln1"),
+        "ln2": _sb_ln(sd, "postnet.ln2"),
+        "ln3": _sb_ln(sd, "postnet.ln3"),
+    }
+    # "convs_intermedite" is SpeechBrain's own (misspelled) attribute name
+    for i in range(cfg.postnet_n_convolutions - 2):
+        for cand in (f"postnet.convs_intermedite.{i}",
+                     f"postnet.convs_intermediate.{i}"):
+            if f"{cand}.conv.weight" in sd or f"{cand}.weight" in sd:
+                postnet[f"conv_mid_{i}"] = _sb_conv(sd, cand)
+                break
+        else:
+            raise KeyError(f"postnet intermediate conv {i} not found")
+
+    params = {
+        "prenet": {
+            "embed": {
+                "embedding": _get(
+                    sd,
+                    "encPreNet.token_embedding.Embedding.weight",
+                    "encPreNet.token_embedding.weight",
+                    "encPreNet.embedding.weight",
+                )
+            }
+        },
+        "encoder": fft_stack("encoder", cfg.enc_num_layers, cfg.enc_num_head),
+        "decoder": fft_stack("decoder", cfg.dec_num_layers, cfg.dec_num_head),
+        "speaker_emb": _sb_embed(sd, "speaker_emb"),
+        "concat_proj": _sb_dense(sd, "concat_proj", bias=False),
+        "duration_predictor": predictor("durPred"),
+        "pitch_predictor": predictor("pitchPred"),
+        "energy_predictor": predictor("energyPred"),
+        "pitch_embed": _sb_conv(sd, "pitchEmbed"),
+        "energy_embed": _sb_conv(sd, "energyEmbed"),
+        "mel_head": _sb_dense(sd, "linear"),
+        "postnet": postnet,
+    }
+    return {"params": params, "batch_stats": {}}
+
+
+def torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A reference ``best_model.pth`` (a state_dict, or one wrapped as
+    ``{'state_dict': ...}``) as numpy arrays, read with ``weights_only``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return _numpy_values(sd)
+
+
+def _numpy_values(sd: Mapping) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()
+            if isinstance(v, torch.Tensor)}
+
+
 def load_vocoder_checkpoint(path: str) -> dict:
-    """Load a vocoder checkpoint saved by the reference as a flat ``.npz``
-    (keys ``a/b/c``) back into its nested ``{'params': tree}``."""
+    """A vocoder checkpoint as the reference's nested ``{'params': tree}``:
+    a flat ``.npz`` of converted params (keys ``a/b/c``), or a torch
+    HiFi-GAN generator ``.pt``/``.pth`` (its state_dict, bare or as
+    ``{'generator': sd}``), converted on the fly."""
     if not path.endswith(".npz"):
-        raise ValueError(
-            f"only .npz vocoder checkpoints are read here, got {path!r}; "
-            "convert torch checkpoints with the reference package first"
-        )
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and "generator" in sd:
+            sd = sd["generator"]
+        return convert_torch_state_dict(_numpy_values(sd))
     params: dict = {}
     with np.load(path) as flat:
         for key in flat.files:

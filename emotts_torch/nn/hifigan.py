@@ -10,7 +10,8 @@ Parameters keep the reference's layout so that its checkpoints convert name
 by name: conv kernels are (k, in, out), and the transposed-conv kernels are
 time-flipped relative to torch's ``ConvTranspose1d`` weight (the reference
 runs them as input-dilated regular convs).  ``F.conv_transpose1d`` gets the
-kernel flipped back.
+kernel flipped back.  ``convert_torch_state_dict`` brings a torch HiFi-GAN
+generator's checkpoint (weight norm fused) into that layout.
 
 The three flags of the reference select how the ResBlocks run:
 
@@ -29,8 +30,10 @@ the plain ResBlock is computed.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import re
+from typing import Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -165,6 +168,83 @@ class HiFiGANGenerator(nn.Module):
         x = F.leaky_relu(x, LRELU_SLOPE)
         x = conv1d_btc(x, self.conv_post_kernel.to(x.dtype), 1) + self.conv_post_bias
         return torch.tanh(x)[..., 0]  # (B, T·256)
+
+
+# ---------------------------------------------------------------------------
+# torch checkpoint conversion
+# ---------------------------------------------------------------------------
+
+
+def _fuse_weight_norm(sd: Mapping[str, np.ndarray], prefix: str) -> np.ndarray:
+    """The fused weight of ``prefix``: a plain ``weight``, or weight norm's
+    ``weight_g``/``weight_v`` or ``parametrizations.weight.original0/1``."""
+    if f"{prefix}.weight" in sd:
+        return np.asarray(sd[f"{prefix}.weight"])
+    if f"{prefix}.weight_v" in sd:
+        g = np.asarray(sd[f"{prefix}.weight_g"])
+        v = np.asarray(sd[f"{prefix}.weight_v"])
+    elif f"{prefix}.parametrizations.weight.original0" in sd:
+        g = np.asarray(sd[f"{prefix}.parametrizations.weight.original0"])
+        v = np.asarray(sd[f"{prefix}.parametrizations.weight.original1"])
+    else:
+        raise KeyError(f"no weight found for {prefix}")
+    # torch weight_norm dim=0: norm over all dims except 0
+    axes = tuple(range(1, v.ndim))
+    norm = np.sqrt((v**2).sum(axis=axes, keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
+def _to_flax_conv(w: np.ndarray) -> np.ndarray:
+    """torch Conv1d weight (out, in, k) → (k, in, out)."""
+    return np.transpose(w, (2, 1, 0))
+
+
+def _to_flax_conv_transpose(w: np.ndarray) -> np.ndarray:
+    """torch ConvTranspose1d weight (in, out, k) → time-flipped (k, in, out),
+    the reference's storage order."""
+    return np.flip(np.transpose(w, (2, 0, 1)), axis=0).copy()
+
+
+def convert_torch_state_dict(sd: Mapping[str, np.ndarray]) -> Dict:
+    """A torch HiFi-GAN generator state_dict (numpy values; the official
+    hifi-gan / SpeechBrain layout: ``conv_pre``, ``ups.N``, ``resblocks.M``
+    with M = i·n_kernels + j and ``convs1.D``/``convs2.D``, ``conv_post``)
+    → the reference's ``{'params': tree}``.  The structure is read from the
+    keys the state_dict holds."""
+
+    def _count(pattern):
+        idx = {int(m.group(1)) for k in sd for m in [re.match(pattern, k)] if m}
+        return max(idx) + 1 if idx else 0
+
+    n_ups = _count(r"ups\.(\d+)\.")
+    n_kernels = _count(r"resblocks\.(\d+)\.") // max(n_ups, 1)
+    n_dilations = _count(r"resblocks\.0\.convs1\.(\d+)\.")
+
+    def get(name):
+        return _fuse_weight_norm(sd, name)
+
+    def bias(name):
+        return np.asarray(sd[name + ".bias"])
+
+    params: Dict = {
+        "conv_pre_kernel": _to_flax_conv(get("conv_pre")),
+        "conv_pre_bias": bias("conv_pre"),
+        "conv_post_kernel": _to_flax_conv(get("conv_post")),
+        "conv_post_bias": bias("conv_post"),
+    }
+    for i in range(n_ups):
+        params[f"up_{i}_kernel"] = _to_flax_conv_transpose(get(f"ups.{i}"))
+        params[f"up_{i}_bias"] = bias(f"ups.{i}")
+        for j in range(n_kernels):
+            m = i * n_kernels + j
+            block: Dict = {}
+            for d in range(n_dilations):
+                for conv in ("convs1", "convs2"):
+                    name = f"resblocks.{m}.{conv}.{d}"
+                    block[f"{conv}_{d}_kernel"] = _to_flax_conv(get(name))
+                    block[f"{conv}_{d}_bias"] = bias(name)
+            params[f"resblock_{i}_{j}"] = block
+    return {"params": params}
 
 
 def generator_structure_from_params(

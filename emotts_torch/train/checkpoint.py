@@ -4,7 +4,8 @@ best-params export.
 The directory contract of ``emotts/train/checkpoint.py`` in this package's own
 file format: step-indexed full states under ``<exp>/checkpoints`` (the last
 ``keep`` are retained) and one params-only export under ``<exp>/best``, which
-bucketization and synthesis read.
+bucketization and synthesis read.  ``save_best_export`` writes that export
+without a train state (the reference-checkpoint importer's experiments).
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ class CheckpointManager:
     def __init__(self, exp_path: str, keep: int = 3):
         self.exp_path = Path(exp_path)
         self.ckpt_dir = (self.exp_path / "checkpoints").absolute()
-        self.best_dir = (self.exp_path / "best").absolute()
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
 
@@ -66,11 +66,19 @@ class CheckpointManager:
 
     def save_best(self, params: Dict[str, torch.Tensor]) -> None:
         """Export best-on-validation parameters (a ``state_dict``)."""
-        if self.best_dir.exists():
-            shutil.rmtree(self.best_dir)
-        self.best_dir.mkdir(parents=True)
-        _save_atomically({k: v.detach().cpu() for k, v in params.items()},
-                         self.best_dir / BEST_FILE)
+        save_best_export(str(self.exp_path), params)
+
+
+def save_best_export(exp_path: str, state_dict: Dict[str, torch.Tensor]) -> str:
+    """Write the ``best/`` export that :func:`load_best_params` reads into an
+    experiment directory, replacing any earlier one; returns its directory."""
+    best_dir = (Path(exp_path) / "best").absolute()
+    if best_dir.exists():
+        shutil.rmtree(best_dir)
+    best_dir.mkdir(parents=True)
+    _save_atomically({k: v.detach().cpu() for k, v in state_dict.items()},
+                     best_dir / BEST_FILE)
+    return str(best_dir)
 
 
 def load_best_params(exp_path: str, device="cpu") -> Dict[str, torch.Tensor]:

@@ -11,13 +11,15 @@ frame-level output averaged to phone level over the ground-truth durations
 The PostNet's BatchNorm running statistics are buffers of the model, so the
 checkpoints, the ``best/`` export and a restore carry them with the
 parameters.  Dropout masks come from a ``torch.Generator`` that the train
-state owns and checkpoints.  The reference's mel-grid images
-(``plot_mel_grid``) and its profiler capture (``profile_epoch``) are not
-written here.
+state owns and checkpoints.  A sampled validation epoch writes the
+predicted-against-ground-truth mel grid ``<exp>/mels/valid_epoch_{epoch}.png``
+(where matplotlib is installed), and ``profile_epoch`` runs under
+``torch.profiler`` with its trace under ``<exp>/profile``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from pathlib import Path
@@ -37,11 +39,13 @@ from emotts_torch.nn.intensity import IntensityExtractor
 from emotts_torch.nn.length_regulator import segment_mean
 from emotts_torch.ops.attention import resolve_fused_attention
 from emotts_torch.train.checkpoint import CheckpointManager
-from emotts_torch.train.metrics import EpochAverager, MetricsWriter, StepTimer
+from emotts_torch.train.metrics import (EpochAverager, MetricsWriter, StepTimer,
+                                        profile_trace)
 from emotts_torch.train.rank_trainer import _read_back, resolve_device
 from emotts_torch.train.state import TrainState, make_optimizer
 from emotts_torch.utils.config import Config
 from emotts_torch.utils.experiment import increment_path, set_seed
+from emotts_torch.utils.plotting import plot_mel_grid
 
 _BATCH_TENSORS = ("phonemes", "durations", "mel", "pitch", "energy", "rank_x",
                   "phon_len", "mel_len", "speakers", "emotions", "row_valid")
@@ -228,6 +232,10 @@ class FS2Trainer:
             rv = batch.get("row_valid")
             avg.update(metrics, weight=float(rv.sum()) if rv is not None else 1.0)
             if exp_path and not sampled and epoch % plot_every == 0:
+                mels_dir = Path(exp_path) / "mels"
+                mels_dir.mkdir(exist_ok=True)
+                plot_mel_grid(mel_pred.float().cpu().numpy(), batch["mel"],
+                              str(mels_dir / f"valid_epoch_{epoch}.png"))
                 self._vocode_samples(batch, mel_pred, epoch, exp_path)
                 sampled = True
         means = avg.means()
@@ -290,7 +298,9 @@ class FS2Trainer:
         ae = max(1, tr.artifact_every_epochs)
         with torch.autograd.set_detect_anomaly(bool(tr.debug_nans)):
             for epoch in range(tr.n_epochs):
-                train_means = self.train_epoch(train_loader, epoch, writer)
+                with (profile_trace(os.path.join(exp_path, "profile"), self.device)
+                      if epoch == tr.profile_epoch else contextlib.nullcontext()):
+                    train_means = self.train_epoch(train_loader, epoch, writer)
                 next_step = global_step + train_loader.batches_per_epoch(epoch)
                 # the final epoch always validates so best/ is always exported
                 last = next_step >= tr.max_iterations or epoch == tr.n_epochs - 1

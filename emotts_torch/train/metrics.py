@@ -1,8 +1,10 @@
-"""Metrics logging: JSONL scalars (TensorBoard too where importable) and
-step timing.  Counterpart of ``emotts/train/metrics.py``."""
+"""Metrics logging: JSONL scalars (TensorBoard too where importable), step
+timing, and the profiler capture of one epoch.  Counterpart of
+``emotts/train/metrics.py``."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import socket
@@ -108,3 +110,21 @@ class StepTimer:
     def mean_step_time(self, skip: int = 1) -> Optional[float]:
         xs = self._times[skip:]
         return sum(xs) / len(xs) if xs else None
+
+
+@contextlib.contextmanager
+def profile_trace(out_dir: str, device):
+    """``torch.profiler`` over the block (host activity and, on a CUDA
+    device, the card's kernels), its Chrome trace written to
+    ``<out_dir>/trace.json``: the counterpart of the reference's
+    ``jax.profiler.trace(<exp>/profile)`` around ``profile_epoch``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))

@@ -7,13 +7,16 @@ per-epoch scalars, step-indexed checkpoints and a best-params export.
 
 Mixup weights and dropout masks come from two ``torch.Generator``s that the
 train state owns and checkpoints, so a resumed run continues their streams.
-Metrics are read back from the device once per step.  The t-SNE image the
-reference renders at validation (it needs scikit-learn and matplotlib) and
-its profiler capture are not written here.
+Metrics are read back from the device once per step.  Validation on the
+artifact epochs (``artifact_every_epochs``) and the last writes
+``<exp>/tsne_epoch_{epoch}.png`` of the pooled features (where scikit-learn
+and matplotlib are installed), and ``profile_epoch`` runs under
+``torch.profiler`` with its trace under ``<exp>/profile``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Optional, Tuple
 
@@ -27,10 +30,12 @@ from emotts_torch.nn.init import seeded_init_
 from emotts_torch.nn.intensity import RankModel
 from emotts_torch.ops.attention import resolve_fused_attention
 from emotts_torch.train.checkpoint import CheckpointManager
-from emotts_torch.train.metrics import EpochAverager, MetricsWriter, StepTimer
+from emotts_torch.train.metrics import (EpochAverager, MetricsWriter, StepTimer,
+                                        profile_trace)
 from emotts_torch.train.state import TrainState, make_optimizer
 from emotts_torch.utils.config import Config
 from emotts_torch.utils.experiment import increment_path, set_seed
+from emotts_torch.utils.plotting import DEFAULT_COLORS, DEFAULT_MARKERS, plot_tsne
 
 _BATCH_TENSORS = ("emo_x", "neu_x", "emotions", "lengths", "row_valid")
 
@@ -176,15 +181,33 @@ class RankTrainer:
                 writer.scalar("train/step_time_s", st, epoch)
         return means
 
-    def validate_epoch(self, loader: BucketLoader, epoch: int, writer=None) -> Dict:
+    def validate_epoch(self, loader: BucketLoader, epoch: int, writer=None,
+                       exp_path: Optional[str] = None) -> Dict:
+        """Validation means; with ``exp_path``, also the t-SNE image of the
+        pooled features of the rows the loader did not repeat."""
         avg = EpochAverager()
+        h_all, emo_all, spk_all, lam_all = [], [], [], []
         for batch in loader.epoch(epoch):
-            metrics, _ = self.eval_step(batch)
+            metrics, h = self.eval_step(batch)
             rv = batch.get("row_valid")
             avg.update(metrics, weight=float(rv.sum()) if rv is not None else 1.0)
+            if exp_path is not None:
+                keep = rv > 0 if rv is not None else slice(None)
+                h_all.append(h[keep])
+                emo_all.append(batch["emotions"][keep])
+                spk_all.append(batch["speakers"][keep])
+                lam_all.append(np.linspace(0, 1, len(batch["emotions"]))[keep])
         means = avg.means()
         if writer is not None:
             writer.scalars(means, epoch, prefix="valid/")
+        if h_all:
+            plot_tsne(
+                np.concatenate(h_all), np.concatenate(emo_all),
+                np.concatenate(spk_all), np.concatenate(lam_all),
+                self.cfg.data.emotions, self.cfg.data.speakers,
+                DEFAULT_COLORS, DEFAULT_MARKERS,
+                os.path.join(exp_path, f"tsne_epoch_{epoch}.png"),
+            )
         return means
 
     def restore(self, exp_path: str) -> bool:
@@ -215,15 +238,20 @@ class RankTrainer:
         patience = 0
         global_step = 0
         ve = max(1, tr.validate_every_epochs)
+        ae = max(1, tr.artifact_every_epochs)
         anomaly = torch.autograd.set_detect_anomaly(bool(tr.debug_nans))
         with anomaly:
             for epoch in range(tr.n_epochs):
-                train_means = self.train_epoch(train_loader, epoch, writer)
+                with (profile_trace(os.path.join(exp_path, "profile"), self.device)
+                      if epoch == tr.profile_epoch else contextlib.nullcontext()):
+                    train_means = self.train_epoch(train_loader, epoch, writer)
                 next_step = global_step + train_loader.batches_per_epoch(epoch)
                 # the final epoch always validates so best/ is always exported
                 last = (next_step >= tr.max_iterations or epoch == tr.n_epochs - 1)
                 if last or (epoch + 1) % ve == 0:
-                    val_means = self.validate_epoch(valid_loader, epoch, writer)
+                    val_means = self.validate_epoch(
+                        valid_loader, epoch, writer,
+                        exp_path if (last or (epoch + 1) % ae == 0) else None)
                     sel_key = ("loss_informative"
                                if tr.selection_metric == "informative" else "loss")
                     val_loss = val_means.get(

@@ -199,7 +199,7 @@ class TrainConfig:
     validate_every_epochs: int = 1
     artifact_every_epochs: int = 1
     # observability/debug (SURVEY.md §5: absent in the reference)
-    profile_epoch: int = -1  # epoch to capture a jax.profiler trace (-1 = off)
+    profile_epoch: int = -1  # epoch run under torch.profiler (-1 = off)
     debug_nans: bool = False  # enable jax_debug_nans for fault isolation
     # best-checkpoint / early-stop criterion.  "loss" = the validation total
     # loss (the reference's criterion, rank_model/train.py:246-256).  For the

@@ -67,8 +67,10 @@ def test_structure_from_params_and_npz_round_trip(tmp_path):
     loaded = load_vocoder_checkpoint(path)
     a, b = hifigan_from_flax(tree), hifigan_from_flax(loaded)
     assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(ValueError):
-        load_vocoder_checkpoint("generator.pt")
+    # a torch checkpoint is read as one, not refused (its conversion:
+    # tests/test_torch_reference_import.py)
+    with pytest.raises(FileNotFoundError):
+        load_vocoder_checkpoint(str(tmp_path / "generator.pt"))
 
 
 @pytest.mark.parametrize("flags", [

@@ -44,7 +44,8 @@ def test_there_are_sources_to_check():
                    "emotts_torch/data/preprocess.py", "emotts_torch/cli/prepare_corpus.py",
                    "emotts_torch/eval/evaluate.py", "emotts_torch/eval/intensity_eval.py",
                    "emotts_torch/eval/metrics.py", "emotts_torch/nn/hifigan_disc.py",
-                   "emotts_torch/losses/gan.py", "emotts_torch/train/vocoder_trainer.py"):
+                   "emotts_torch/losses/gan.py", "emotts_torch/train/vocoder_trainer.py",
+                   "emotts_torch/cli/main.py", "emotts_torch/utils/plotting.py"):
         assert needed in names
 
 

@@ -124,6 +124,33 @@ def _plain(tree):
     return tree
 
 
+def weight_normed_hifigan(seed=0, layout="weight_norm", n_mels=8, ch0=32,
+                          kernels=(4, 4), resblock_kernels=(3, 7, 11), n_dilations=3):
+    """A torch HiFi-GAN generator state_dict in the official layout
+    (``conv_pre``, ``ups.N``, ``resblocks.M.convs{1,2}.D``, ``conv_post``),
+    values from a numpy seed, built by chip_smoke.py's
+    ``weight_normed_generator``.  ``layout``: ``weight_norm`` (``weight_g`` /
+    ``weight_v``), ``parametrizations`` (``parametrizations.weight.
+    original0/1``) or ``plain`` (``weight_v`` as the fused ``weight``)."""
+    from chip_smoke import weight_normed_generator
+
+    sd = weight_normed_generator(
+        np.random.default_rng(seed), n_mels, ch0, kernels, resblock_kernels,
+        [range(n_dilations)] * len(resblock_kernels), v_scale=0.3, g_scale=1.0)
+    leaves = dict(
+        weight_norm={},
+        parametrizations=dict(weight_g="parametrizations.weight.original0",
+                              weight_v="parametrizations.weight.original1"),
+        plain=dict(weight_g=None, weight_v="weight"))[layout]
+    out = {}
+    for key, value in sd.items():
+        name, _, leaf = key.rpartition(".")
+        leaf = leaves.get(leaf, leaf)
+        if leaf is not None:
+            out[f"{name}.{leaf}"] = value
+    return out
+
+
 SMALL_RANK = dict(n_mels=8, n_heads=2, n_emotions=3, n_layers=2, hidden_dim=32,
                   kernel_size=3, ffn_mult=2, dropout=0.1)
 
