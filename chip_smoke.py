@@ -85,6 +85,21 @@ a non-zero exit:
               attention launches, against the forwards that make them; then
               serve (health, one request) and g2p as
               ``python -m emotts_torch.cli.main`` subprocesses
+22. data_parallel  emotts_torch/parallel on the one card: (a) the rank, FS2
+              (bucket 1024) and vocoder GAN steps under the DP path, NCCL at
+              world size 1 in this process, against the same steps with no
+              process group (fp32 losses within 1e-6; bf16 read alone: wall,
+              device ms, launches, the all-reduces' extra launches, idle
+              share, peak memory); (b) two processes of this script on the
+              card over gloo, 3 fp32 steps of the rank and FS2 trainers:
+              parameters bit-identical across the ranks after every step,
+              losses within 1e-5 and step-1 gradients within 1e-4 of each
+              one's largest entry against one process on the global batches;
+              (c) a Synthesizer over a two-entry mesh on the card: the
+              60-utterance sweep within 1 PCM step of the unsharded one,
+              bucketize over the mesh writing the unsharded bank; (d)
+              train-rank through torch.distributed.run --nproc-per-node 1
+              (NCCL) leaving one experiment directory
 
 The last line is {"ok": true, "device": {...}}; before it stand the card line
 and one {"kernels": [...]} line.  Without a GPU the script exits non-zero and
@@ -104,6 +119,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 import wave
 
@@ -1168,23 +1184,28 @@ def train_parity_phase(root, dev):
         dict(fused_attention=layers, fused_attention_bwd=2 * layers))
 
 
-def _worst_gradient(grads, ref):
-    """The largest difference of a parameter's gradient from ``ref``'s, as a
+def _gradient_ratios(grads, ref):
+    """Each parameter's largest gradient difference from ``ref``'s, as a
     share of ref's largest entry for that parameter but of no less than a
     thousandth of the model's largest: the key biases have no gradient at
     all (a softmax row does not see a constant added to every key), nor
     have FastSpeech2's PostNet conv biases (BatchNorm on batch statistics
     removes a constant), so theirs is rounding noise on both sides."""
     largest = max(g.abs().max().item() for g in ref.values())
-    worst, worst_name = 0.0, None
+    ratios = {}
     for name, g in grads.items():
         if not torch.isfinite(g).all() or largest == 0.0:
             raise AssertionError(f"gradient of {name} is not finite, or all are zero")
         scale = max(ref[name].abs().max().item(), 1e-3 * largest)
-        ratio = (g - ref[name]).abs().max().item() / scale
-        if ratio > worst:
-            worst, worst_name = ratio, name
-    return worst, worst_name
+        ratios[name] = (g - ref[name]).abs().max().item() / scale
+    return ratios
+
+
+def _worst_gradient(grads, ref):
+    """(the largest of :func:`_gradient_ratios`, its parameter)."""
+    ratios = _gradient_ratios(grads, ref)
+    worst = max(ratios, key=ratios.get)
+    return ratios[worst], worst
 
 
 def _kernels_against_plain(step, info, launches, relu_gates=False):
@@ -1271,8 +1292,9 @@ def fs2_config(root, compute_dtype="bfloat16"):
     return cfg
 
 
-def fs2_trainer(cfg, rank_exp, dev):
-    """An FS2Trainer conditioned on the rank experiment's best/ extractor.
+def fs2_trainer(cfg, rank_exp, dev, mesh=None):
+    """An FS2Trainer conditioned on the rank experiment's best/ extractor
+    (on ``mesh``, default ``make_mesh(cfg.mesh)``).
     The duration predictor starts at about four frames a phone (output bias
     log1p(4), output weights scaled by 0.3), as the seeded serving weights
     do, so that the trained model makes audio to stream: a choice of
@@ -1281,7 +1303,8 @@ def fs2_trainer(cfg, rank_exp, dev):
     from emotts_torch.train.fs2_trainer import FS2Trainer, extractor_params_from_rank
 
     trainer = FS2Trainer(
-        cfg, extractor_params_from_rank(load_best_params(rank_exp)), device=dev)
+        cfg, extractor_params_from_rank(load_best_params(rank_exp)), device=dev,
+        mesh=mesh)
     with torch.no_grad():
         trainer.model.duration_predictor.out.bias.fill_(math.log1p(4.0))
         trainer.model.duration_predictor.out.weight.mul_(0.3)
@@ -2889,6 +2912,451 @@ def cli_phase(root, dev, sweep_wall_ms):
         launches=totals, fp32_launches=fp32)
 
 
+# --------------------------------------------------------------------------
+# phase 22: data parallelism (emotts_torch/parallel) on the one card
+# --------------------------------------------------------------------------
+
+DP_STEPS = 3  # steps of each trainer in the two-process run
+DP_LOSS_RTOL = 1e-6  # fp32, world size 1: the DP path against the plain step
+DP_TWO_RTOL = 1e-5  # two processes against one on the global batch
+DP_GRAD_RTOL = 1e-4  # of each gradient's largest entry
+# FastSpeech2 gates with ReLUs: a forward that differs at the rounding level
+# (the batch split changes cuBLAS's and cuDNN's sums) can flip a gate at a
+# value near zero and move a gradient sum by one or more of its terms, as in
+# phase 13 (2.3e-3 to 3.3e-2 of the largest entry); the rank model's GELU
+# does not
+DP_GRAD_RTOL_RELU = 5e-2
+
+
+def seeded_build(build):
+    """``build()`` with the global generator seeded: the seeded init redraws
+    the matrices, the constructed vectors (``nn.Linear`` biases) come from
+    the global generator, so that two builds start from the same weights."""
+    torch.manual_seed(SEED)
+    return build()
+
+
+def digest(model):
+    """sha1 of a model's state (parameters and buffers), for bit-identity."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for name, t in sorted(model.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def wall_ms(trainer, batch, steps=2):
+    """The mean wall ms of ``steps`` synchronised train steps."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def step_reading(trainer, batch):
+    """One train step under the profiler: device ms, kernel launches, the
+    NCCL kernels among them, and the memory the step allocates above what
+    was allocated before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.key.startswith("Optimizer.")]
+    return dict(device_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+                launches=sum(e.count for e in kernels),
+                nccl_launches=sum(e.count for e in kernels if "nccl" in e.key.lower()),
+                step_peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+
+def dp_batch(name, trainer, root):
+    """The batch of phase 22 (a) for trainer ``name``: the rank model's
+    first batch at its largest frame bucket, FS2's at bucket 1024, the
+    vocoder's 16 segments of the raw corpus."""
+    from emotts_torch.train.vocoder_trainer import SegmentSampler
+
+    if name == "vocoder":
+        cfg = trainer.cfg
+        wavs = sorted(glob.glob(os.path.join(cfg.data.corpus_path, "*", "*.wav")))
+        return {"y": SegmentSampler(wavs, cfg.audio.sampling_rate, trainer.segment_samples,
+                                    seed=SEED).batch(cfg.train_vocoder.batch_size)}
+    first, _ = first_batch_by_bucket(trainer._loader("train", shuffle=True))
+    return first[max(first)]
+
+
+def dp_trainer_makers(root, rank_exp, dtype, dev):
+    """(name, loss key, build(mesh)) of the three trainers at full width in
+    ``dtype``."""
+    from emotts_torch.train.rank_trainer import RankTrainer
+    from emotts_torch.train.vocoder_trainer import VocoderTrainer
+
+    rank_cfg, fs2_cfg = rank_config(root, dtype), fs2_config(root, dtype)
+    voc_cfg = vocoder_config(root, compute_dtype=dtype)
+    return [
+        ("rank", "loss", lambda mesh: RankTrainer(rank_cfg, device=dev, mesh=mesh)),
+        ("fs2", "total_loss", lambda mesh: fs2_trainer(fs2_cfg, rank_exp, dev, mesh)),
+        ("vocoder", "g_total", lambda mesh: VocoderTrainer(voc_cfg, device=dev, mesh=mesh)),
+    ]
+
+
+def dp_nccl_phase(root, rank_exp, dev):
+    """(a) The three train steps under the DP path in this process, NCCL at
+    world size 1 (DDP for the rank and FS2 trainers, the explicit gradient
+    all-reduce for the GAN step, the loss and BatchNorm sums all-reduced),
+    against the same step with no process group, both built from the same
+    seed: first-step losses at fp32 within DP_LOSS_RTOL, bf16 recorded; in
+    bf16 the wall of two steps read in turns (plain, DP, DP, plain), then
+    one profiled step each: device ms, launches, idle share, the memory each
+    holds after its first step and the step's peak above it."""
+    import torch.distributed as dist
+
+    from emotts_torch.parallel.mesh import Mesh
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl_store_{time.time_ns()}",
+                            world_size=1, rank=0)
+    plain = Mesh(1, (dev,))
+    out, batches = {}, {}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            for name, key, build in dp_trainer_makers(root, rank_exp, dtype, dev):
+                trainers, runs = {}, {}
+                for path, mesh in (("plain", plain), ("dp", None)):
+                    torch.cuda.empty_cache()
+                    before = torch.cuda.memory_allocated()
+                    trainers[path] = seeded_build(lambda: build(mesh))
+                    if name not in batches:
+                        batches[name] = dp_batch(name, trainers[path], root)
+                    runs[path] = dict(first_step=trainers[path].train_step(batches[name]))
+                    runs[path]["held_bytes"] = torch.cuda.memory_allocated() - before
+                if not trainers["dp"].mesh.distributed or trainers["plain"].mesh.distributed:
+                    raise AssertionError(f"(a) {name}: the two paths' meshes are wrong")
+                a, b = runs["dp"]["first_step"][key], runs["plain"]["first_step"][key]
+                rel = abs(a - b) / abs(b)
+                res = dict(dtype=dtype, loss_key=key, loss_rel_difference=rel)
+                if dtype == "float32":
+                    res["loss_rtol"] = DP_LOSS_RTOL
+                    if not np.isfinite(a) or rel > DP_LOSS_RTOL:
+                        raise AssertionError(f"(a) {name} fp32: DP loss {a} against {b}")
+                else:
+                    walls = {"plain": [], "dp": []}
+                    for path in ("plain", "dp", "dp", "plain"):
+                        walls[path].append(wall_ms(trainers[path], batches[name]))
+                    for path in runs:
+                        runs[path].update(step_reading(trainers[path], batches[name]),
+                                          wall_ms=sum(walls[path]) / 2)
+                        runs[path]["idle_share"] = max(
+                            0.0, 1.0 - runs[path]["device_ms"] / runs[path]["wall_ms"])
+                    res.update(
+                        extra_launches=runs["dp"]["launches"] - runs["plain"]["launches"],
+                        extra_held_bytes=runs["dp"]["held_bytes"] - runs["plain"]["held_bytes"],
+                        extra_step_peak_bytes=(runs["dp"]["step_peak_bytes"]
+                                               - runs["plain"]["step_peak_bytes"]))
+                res.update(dp=runs["dp"], plain=runs["plain"])
+                out[f"{name}_{dtype}"] = res
+                del trainers
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+# the gate inputs of FastSpeech2's ReLUs: the prenet's norms, the variance
+# predictors' convs, the FFT blocks' first FFN conv
+RELU_GATES = ("prenet.norms.", "predictor.conv1", "predictor.conv2", "ffn.conv1")
+
+
+def gate_recorder(model, rows, seen=None):
+    """Forward hooks on the modules whose output a ReLU gates: each output's
+    first ``rows`` rows are kept (``seen`` empty) or compared with the kept
+    ones (``seen`` given: the count of entries on the other side of zero
+    goes into ``seen['flips']``).  Returns the hooks' handles."""
+    kept = {} if seen is None else seen
+
+    def hook(name):
+        def record(module, args, out):
+            out = out.detach()[:rows].float()
+            if seen is None:
+                kept[name] = out
+            else:
+                kept["flips"] = kept.get("flips", 0) + int(
+                    ((out > 0) != (kept[name] > 0)).sum())
+        return record
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()
+               if any(g in n for g in RELU_GATES) and not list(m.children())]
+    return kept, handles
+
+
+def dp_gloo_worker(argv):
+    """(b) One of two processes on the one card over ``gloo``: DP_STEPS fp32
+    steps of the rank and FS2 trainers at full width on its rows of the
+    global batches; the parameters' digests after every step are gathered.
+    Before each step rank 0 copies the state into a trainer with no process
+    group and takes that step on the global batch: the losses within
+    DP_TWO_RTOL, the step-1 gradients within DP_GRAD_RTOL of each one's
+    largest entry (FastSpeech2's within DP_GRAD_RTOL_RELU), the parameters
+    bit-identical across the ranks.  Writes rank 0's report to ``out``."""
+    import torch.distributed as dist
+
+    from emotts_torch.parallel.mesh import Mesh
+    from emotts_torch.train.rank_trainer import RankTrainer
+
+    store, rank, root, rank_exp, out_path, dev = argv
+    rank, dev = int(rank), torch.device(dev)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=store, world_size=2, rank=rank)
+    report = {}
+    try:
+        jobs = (("rank", "loss", DP_GRAD_RTOL, lambda mesh: RankTrainer(
+                    rank_config(root, "float32"), device=dev, mesh=mesh)),
+                ("fs2", "total_loss", DP_GRAD_RTOL_RELU, lambda mesh: fs2_trainer(
+                    fs2_config(root, "float32"), rank_exp, dev, mesh)))
+        for name, key, grad_rtol, build in jobs:
+            trainer = seeded_build(lambda: build(None))
+            local = iter(trainer._loader("train", shuffle=True).epoch(0))
+            if rank == 0:
+                one = seeded_build(lambda: build(Mesh(1, (dev,))))
+                whole = iter(one._loader("train", shuffle=True).epoch(0))
+            losses, one_losses, digests, step_ms = [], [], [], []
+            gates = None
+            for i in range(DP_STEPS):
+                batch = next(local)
+                rows = len(batch["row_valid"])
+                if rank == 0:  # the same step from the same state, one process
+                    one.state.load_state_dict(copy.deepcopy(trainer.state.state_dict()))
+                    if i == 0 and name == "fs2":
+                        # rank 0's rows lead the global batch
+                        gates, handles = gate_recorder(one.model, rows)
+                    one_losses.append(one.train_step(next(whole)))
+                    if i == 0:
+                        ref = {n: p.grad.detach().clone()
+                               for n, p in one.model.named_parameters()}
+                    if gates is not None and i == 0:
+                        for h in handles:
+                            h.remove()
+                        _, handles = gate_recorder(trainer.model, rows, gates)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(trainer.train_step(batch))
+                torch.cuda.synchronize()
+                if gates is not None and i == 0:
+                    for h in handles:
+                        h.remove()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                digests.append(digest(trainer.model))
+                if i == 0:
+                    grads = {n: p.grad.detach().clone()
+                             for n, p in trainer.model.named_parameters()}
+            everyone = [None, None]
+            dist.all_gather_object(everyone, (digests, losses))
+            if rank == 0:
+                ratios = _gradient_ratios(grads, ref)
+                worst = sorted(ratios, key=ratios.get, reverse=True)
+                rel = max(abs(a[key] - b[key]) / abs(b[key])
+                          for a, b in zip(losses, one_losses))
+                same = everyone[0][0] == everyone[1][0]
+                report[name] = dict(
+                    rows_per_rank=rows, step_ms=step_ms,
+                    losses_two=[m[key] for m in losses],
+                    losses_one=[m[key] for m in one_losses],
+                    ranks_equal_losses=everyone[0][1] == everyone[1][1],
+                    parameters_bit_identical=same, loss_rel_difference=rel,
+                    loss_rtol=DP_TWO_RTOL, worst_gradient_difference=ratios[worst[0]],
+                    worst_gradients=[[n, ratios[n]] for n in worst[:8]],
+                    parameters=len(ratios),
+                    parameters_over_strict_rtol=sum(r > DP_GRAD_RTOL for r in ratios.values()),
+                    gradient_rtol_of_largest_entry=grad_rtol,
+                    relu_gate_flips_rank0_rows=None if gates is None else gates.get("flips", 0))
+                del one, ref, gates
+                if not same or not report[name]["ranks_equal_losses"] \
+                        or rel > DP_TWO_RTOL or ratios[worst[0]] > grad_rtol:
+                    raise AssertionError(f"(b) {name}: {report[name]}")
+            del trainer, grads
+            torch.cuda.empty_cache()
+            dist.barrier()
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_gloo_phase(root, rank_exp, dev):
+    """(b) Two processes of this script on the one card over ``gloo``
+    (NCCL takes no two ranks on one device); the kernels are the parent's
+    build."""
+    store = f"file://{root}/gloo_store_{time.time_ns()}"  # a new file store
+    out = os.path.join(root, "dp_gloo.json")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", store, str(rank),
+         root, rank_exp, out, str(dev)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"(b) rank {rank} exited {p.returncode}:\n{logs[rank][-4000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def dp_serving_phase(root, rank_exp, weights, dev):
+    """(c) A Synthesizer over a two-entry mesh on this card (fp32, every
+    kernel) against the unsharded one: the 60-utterance sweep within one PCM
+    step, its launches against the replicas' forwards; bucketize over the
+    same mesh writes the unsharded bank."""
+    import shutil
+
+    from emotts_torch.infer.bucketize import bucketize, compute_intensity_prototypes
+    from emotts_torch.infer.synthesize import Synthesizer
+    from emotts_torch.ops import attention, mrf, resblock
+    from emotts_torch.parallel.mesh import Mesh
+    from emotts_torch.train.checkpoint import load_best_params
+
+    mesh = Mesh(2, (dev, dev))
+    cfg = full_width_config("float32")
+    synths = {name: Synthesizer(cfg, weights[0], weights[1], weights[2],
+                                vocoder_structure=vocoder_structure(cfg), device=dev,
+                                mesh=m)
+              for name, m in (("one", None), ("two", mesh))}
+    if len(synths["two"]._replicas) != 2:
+        raise AssertionError("the sharded Synthesizer has no second replica")
+    sweeps, out = {}, {}
+    for name, synth in synths.items():
+        zero_counts(attention, mrf, resblock)
+        counters = [ForwardCounter(types.SimpleNamespace(model=m, vocoder=v))
+                    for m, v in synth._replicas]
+        sweeps[name] = sweep_phase(cfg, synth)  # one warm sweep, one timed
+        sweeps[name]["wavs"] = synth.intensity_sweep(cfg.inference.text)
+        fs2 = sum(c.fs2 for c in counters)
+        voc = sum(c.vocoder for c in counters)
+        for c in counters:
+            c.close()
+        per_mrf, per_resblock = vocoder_launches(synth.vocoder)
+        f2 = cfg.fastspeech2
+        counted = dict(fused_attention=attention.launch_count,
+                       fused_mrf_stage=mrf.launch_count,
+                       fused_resblock1=resblock.launch_count)
+        expected = dict(fused_attention=(f2.enc_num_layers + f2.dec_num_layers) * fs2,
+                        fused_mrf_stage=per_mrf * voc, fused_resblock1=per_resblock * voc)
+        if counted != expected or min(counted.values()) == 0:
+            raise AssertionError(f"(c) {name}: launches {counted}, expected {expected}")
+        out[name] = dict(wall_ms=sweeps[name]["wall_ms"], fs2_forwards=fs2,
+                         generator_forwards=voc, launches=counted)
+    one, two = sweeps["one"]["wavs"], sweeps["two"]["wavs"]
+    worst = 0
+    for key, wav in one.items():
+        a = np.round(np.asarray(two[key], np.float64) * 32767.0)
+        b = np.round(np.asarray(wav, np.float64) * 32767.0)
+        if a.shape != b.shape:
+            raise AssertionError(f"(c) {key}: {a.shape} samples sharded, {b.shape} not")
+        worst = max(worst, int(np.abs(a - b).max()))
+    out["sweep_worst_pcm_steps"] = worst
+    if worst > 1:
+        raise AssertionError(f"(c) sharded sweep {worst} PCM steps from the unsharded")
+    del synths
+    torch.cuda.empty_cache()
+
+    rank_cfg = rank_config(root)
+    params = load_best_params(rank_exp)
+    t0 = time.perf_counter()
+    want = compute_intensity_prototypes(rank_cfg, params, device=dev)
+    t1 = time.perf_counter()
+    copy_exp = os.path.join(root, "dp_bucketize")
+    shutil.copytree(os.path.join(rank_exp, "best"), os.path.join(copy_exp, "best"))
+    written = np.load(bucketize(rank_cfg, copy_exp, device=dev, mesh=mesh))
+    t2 = time.perf_counter()
+    diff = float(np.abs(written - want).max())
+    out["bucketize"] = dict(unsharded_s=t1 - t0, sharded_s=t2 - t1,
+                            max_abs_difference=diff, scale=float(np.abs(want).max()))
+    if written.shape != want.shape or not np.allclose(written, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"(c) the sharded bank differs by {diff}")
+    return out
+
+
+def dp_launcher_phase(root):
+    """(d) ``train-rank`` through ``torch.distributed.run --nproc-per-node
+    1`` (NCCL): one short epoch at full width; one experiment directory."""
+    from emotts_torch.utils.config import save_config
+
+    cfg = rank_config(root)
+    cfg.data.experiment_path = os.path.join(root, "dp_cli", "experiments")
+    cfg.train_rank.n_epochs = 1
+    cfg.train_rank.max_iterations = 4
+    path = os.path.join(root, "dp_cli.yaml")
+    save_config(cfg, path)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "emotts_torch.cli.main", "train-rank",
+         "--config", path],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+        text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(d) exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    runs = os.path.join(cfg.data.experiment_path, "rank_model")
+    exps = sorted(os.listdir(runs))
+    exp = os.path.join(runs, "exp_1")
+    announced = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("[train-rank] experiment:")]
+    if exps != ["exp_1"] or not os.path.exists(os.path.join(exp, "best", "params.pt")) \
+            or len(announced) != 1:
+        raise AssertionError(f"(d) experiments {exps}, announced {announced}")
+    return dict(seconds=seconds, experiments=exps,
+                train_loss_epochs=len(read_metrics(exp).get("train/loss", [])))
+
+
+def dp_phase(root, rank_exp, weights, dev):
+    """Phase 22: (a)-(d), the in-process parts' kernel launches counted from
+    0; returns them and the phase's report."""
+    from emotts_torch.ops import attention, mrf, resblock
+
+    t0 = time.perf_counter()
+    zero_counts(attention, mrf, resblock)
+    nccl = dp_nccl_phase(root, rank_exp, dev)
+    trained = dict(fused_attention=attention.launch_count,
+                   fused_attention_bwd=attention.bwd_launch_count)
+    fp32 = fp32_attention_launches()
+    t1 = time.perf_counter()
+    gloo = dp_gloo_phase(root, rank_exp, dev)
+    t2 = time.perf_counter()
+    serving = dp_serving_phase(root, rank_exp, weights, dev)
+    t3 = time.perf_counter()
+    launched = dp_launcher_phase(root)
+    launches = dict(trained, fused_mrf_stage=serving["two"]["launches"]["fused_mrf_stage"],
+                    fused_resblock1=serving["two"]["launches"]["fused_resblock1"])
+    launches["fused_attention"] += serving["two"]["launches"]["fused_attention"]
+    if min(launches.values()) == 0:
+        raise AssertionError(f"data_parallel: a kernel was not launched: {launches}")
+    return launches, dict(
+        seconds=time.perf_counter() - t0,
+        part_seconds=dict(a=t1 - t0, b=t2 - t1, c=t3 - t2, d=time.perf_counter() - t3),
+        nccl_world_size_1=nccl, gloo_two_processes=gloo, sharded_serving=serving,
+        launcher=launched, launches=launches, fp32_launches=fp32)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
@@ -3049,6 +3517,12 @@ def main():
         cli_launches, fp32_by_path["cli"], cli_report = cli_phase(
             root, dev, sweep["wall_ms"])
         emit("cli", **cli_report)
+        torch.cuda.empty_cache()
+
+        # -- 22. data parallelism ------------------------------------------------
+        dp_launches, dp_report = dp_phase(root, exp, weights, dev)
+        emit("data_parallel", card=card, **dp_report)
+        fp32_by_path["data_parallel"] = dp_report["fp32_launches"]
 
     # -- summary ---------------------------------------------------------------
     # a kernel's launches over the counted paths
@@ -3056,7 +3530,7 @@ def main():
     by_path = dict(serving=serve_launches, training=train_launches,
                    fs2_training=fs2_launches, streaming=stream_launches,
                    evaluation=eval_launches, vocoder_training=voc_launches,
-                   cli=cli_launches)
+                   cli=cli_launches, data_parallel=dp_launches)
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in ("fused_attention", "fused_attention_bwd",
                              "fused_mrf_stage", "fused_resblock1")}
@@ -3120,4 +3594,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:  # phase 22 (b): one of its processes
+        sys.exit(dp_gloo_worker(sys.argv[2:]))
     sys.exit(main())

@@ -6,8 +6,8 @@ the reference so that a module's counterpart is found by its path
 (``emotts_torch/nn/blocks.py`` ↔ ``emotts/nn/blocks.py``).
 
 Ported so far — the path that serves synthesis requests, rank-model,
-FastSpeech2 and vocoder training, bucketization, preprocessing and
-evaluation:
+FastSpeech2 and vocoder training (data-parallel over processes),
+bucketization, preprocessing and evaluation:
 
 * ``emotts_torch.utils``  — the configuration tree and experiment
   directories (own copies).
@@ -31,6 +31,10 @@ evaluation:
 * ``emotts_torch.train``  — AdamW with stored-dtype moments, train state,
   checkpoints, metrics, ``RankTrainer``, ``FS2Trainer``, ``VocoderTrainer``.
 * ``emotts_torch.infer``  — ``Synthesizer``, the HTTP server, ``bucketize``.
+* ``emotts_torch.parallel`` — the data axis on ``torch.distributed``:
+  ``make_mesh``, the loader's process rows, draws at the global batch
+  shape, global sums, DDP and the gradient all-reduce (tensor parallelism
+  is refused: not ported yet).
 """
 
 __version__ = "0.1.0"

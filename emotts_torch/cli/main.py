@@ -27,11 +27,20 @@ lines, output files and exit code 2 on bad arguments:
 ``--device`` (default ``cuda``) is where the commands that compute run.
 Without a GPU they exit with code 2 unless ``--device cpu`` is given: no
 command falls back to the CPU by itself.
+
+Under ``torch.distributed.run`` (``python -m torch.distributed.run
+--nproc-per-node N -m emotts_torch.cli.main train-rank …``) the three
+trainers run data-parallel, one process per device: the command joins the
+process group the launcher describes (NCCL on cuda, on ``cuda:LOCAL_RANK``;
+``gloo`` with ``--device cpu``), rank 0 builds the kernels while the others
+wait, and only rank 0 writes and prints.  Every other command runs on rank 0
+alone.  Without the launcher's variables nothing changes.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -59,6 +68,8 @@ COMMANDS = (
 DEVICE_COMMANDS = {"preprocess", "train-rank", "bucketize", "train-fs2",
                    "synthesize", "train-vocoder", "evaluate", "eval-intensity",
                    "serve"}
+# the commands that run data-parallel under torch.distributed.run
+DATA_PARALLEL_COMMANDS = ("train-rank", "train-fs2", "train-vocoder")
 
 
 def _parse(argv):
@@ -433,6 +444,41 @@ def _train_fs2(args, cfg: Config) -> str:
                       ).fit(exp_path=args.resume, resume=bool(args.resume))
 
 
+def _launched() -> bool:
+    """True under torch.distributed.run (its variables are set)."""
+    return all(v in os.environ for v in ("RANK", "WORLD_SIZE", "LOCAL_RANK"))
+
+
+@contextlib.contextmanager
+def _process_group(args):
+    """Join the launcher's process group for a data-parallel command: NCCL
+    on ``cuda:LOCAL_RANK`` (``args.device`` becomes it), ``gloo`` on the
+    CPU; rank 0 builds the CUDA kernels while the others wait, and the other
+    ranks print nothing."""
+    import torch.distributed as dist
+
+    local = int(os.environ["LOCAL_RANK"])
+    on_cuda = torch.device(args.device).type == "cuda"
+    if on_cuda:
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+    dist.init_process_group("nccl" if on_cuda else "gloo")
+    try:
+        if on_cuda:
+            if dist.get_rank() == 0:
+                from emotts_torch.ops import _build
+
+                _build.build_all()
+            dist.barrier(device_ids=[local])
+        with contextlib.ExitStack() as quiet:
+            if dist.get_rank():
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            yield
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     args = _parse(argv if argv is not None else sys.argv[1:])
     cfg: Config = load_config(args.config, args.overrides)
@@ -443,7 +489,17 @@ def main(argv=None) -> int:
               "GPU is visible; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 2
+    if _launched():
+        if args.command in DATA_PARALLEL_COMMANDS:
+            with _process_group(args):
+                return _run(args, cfg)
+        if int(os.environ["RANK"]) != 0:
+            return 0  # every other command is rank 0's alone
+    return _run(args, cfg)
 
+
+def _run(args, cfg: Config) -> int:
+    on_cuda = torch.device(args.device).type == "cuda"
     if args.command == "prepare-corpus":
         from emotts_torch.cli.prepare_corpus import prepare_corpus
 

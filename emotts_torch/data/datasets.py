@@ -182,6 +182,14 @@ class FS2Dataset:
         npz = np.load(self.data_paths[idx], allow_pickle=True)
         return int(npz["pitch"].shape[0])
 
+    def phone_count_of(self, idx: int) -> int:
+        """The utterance's phone count (read once, then remembered)."""
+        counts = self.__dict__.setdefault("_phone_counts", {})
+        if idx not in counts:
+            npz = np.load(self.data_paths[idx], allow_pickle=True)
+            counts[idx] = len(npz["phones"])
+        return counts[idx]
+
 
 def collate_fs2(
     examples: List[FS2Example], phone_bucket: int, frame_bucket: int

@@ -1,10 +1,12 @@
 """Bucketed, prefetching batch loader (numpy only).
 
-Own copy of ``emotts/data/loader.py`` for one process and one device:
-examples are grouped by length bucket so that every batch has one of a small,
-fixed set of shapes, shuffling is seeded per epoch, and a background thread
-keeps a prefetch queue full so that host collation overlaps device compute.
-The same seed gives the same plan as the reference's loader.
+Own copy of ``emotts/data/loader.py``: examples are grouped by length
+bucket so that every batch has one of a small, fixed set of shapes, shuffling
+is seeded per epoch, and a background thread keeps a prefetch queue full so
+that host collation overlaps device compute.  The same seed gives the same
+plan as the reference's loader.  Under data parallelism over processes every
+process plans the same epoch and loads only its contiguous rows of each
+global batch.
 """
 
 from __future__ import annotations
@@ -30,6 +32,15 @@ class BucketLoader:
       pad_to_multiple: pad trailing partial batches (drop_last=False) to a
         multiple of this by cyclically repeating examples; the repeated rows
         are flagged 0.0 in the batch's ``row_valid``.
+      process_index, process_count: this process's place on the data axis
+        (``Mesh.rank``, ``Mesh.data``).  With more than one process only
+        full batches are kept, and each process loads its contiguous
+        ``batch_size / process_count`` rows of every global batch, with the
+        ``row_valid`` slice beside them.
+      batch_shape: fn(global batch indices) -> extra keyword arguments of
+        ``collate`` decided on the full global batch, as the frame bucket is
+        (e.g. the FastSpeech2 phone bucket), so that every process collates
+        the same shapes.
     """
 
     def __init__(
@@ -44,6 +55,9 @@ class BucketLoader:
         drop_overflow: bool = True,
         prefetch: int = 2,
         pad_to_multiple: int = 1,
+        process_index: int = 0,
+        process_count: int = 1,
+        batch_shape: Optional[Callable[[List[int]], dict]] = None,
     ):
         self.dataset = dataset
         self.buckets = sorted(buckets)
@@ -59,6 +73,15 @@ class BucketLoader:
             raise ValueError(
                 f"batch_size {batch_size} must be a multiple of "
                 f"pad_to_multiple {self.pad_to_multiple}")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not in "
+                             f"[0, {process_count})")
+        if batch_size % process_count:
+            raise ValueError(f"batch_size {batch_size} must divide evenly "
+                             f"across {process_count} processes")
+        self.process_index = process_index
+        self.process_count = process_count
+        self.batch_shape = batch_shape
         self._lengths: Optional[List[int]] = None
 
     def _bucket_of(self, length: int) -> int:
@@ -99,6 +122,10 @@ class BucketLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed * 7919 + epoch)
             rng.shuffle(batches)
+        if self.process_count > 1:
+            # every process keeps the SAME batch list (lockstep steps and
+            # identical bucket shapes); only full batches split into rows
+            batches = [b for b in batches if len(b) == self.batch_size]
         return batches
 
     def batches_per_epoch(self, epoch: int = 0) -> int:
@@ -106,14 +133,22 @@ class BucketLoader:
 
     def _make_batch(self, idxs: List[int]):
         self._ensure_lengths()
+        # shapes are decided on the FULL (global) batch so that every
+        # process collates the same ones, THEN this process loads its rows
         bucket = self._bucket_of(max(self._lengths[i] for i in idxs))
+        extra = self.batch_shape(idxs) if self.batch_shape is not None else {}
         # pre-pad chunks hold unique indices (a shuffled permutation slice);
         # pad_to_multiple appends cyclic duplicates at the END, so the valid
         # prefix length is exactly the unique-index count
         n_valid = len(set(idxs))
         row_valid = np.zeros(len(idxs), dtype=np.float32)
         row_valid[:n_valid] = 1.0
-        batch = self.collate([self.dataset[i] for i in idxs], bucket)
+        if self.process_count > 1:
+            per = len(idxs) // self.process_count
+            lo = self.process_index * per
+            idxs = idxs[lo : lo + per]
+            row_valid = row_valid[lo : lo + per]
+        batch = self.collate([self.dataset[i] for i in idxs], bucket, **extra)
         batch["row_valid"] = row_valid
         return batch
 

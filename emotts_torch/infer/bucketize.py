@@ -6,7 +6,11 @@ with λ ≡ 1 (pure emotional input); per (speaker, emotion) the utterances are
 sorted by rank score, their frame-level intensity vectors concatenated, split
 into ``bucket_size`` contiguous chunks and averaged — prototypes of shape
 (n_speakers, n_emotions, bucket_size, n_emotions), saved as ``intensity.npy``.
-The rank model runs in fp32 without dropout here.
+The rank model runs in fp32 without dropout here.  With a mesh over several
+devices of one process the weights are replicated once per device and every
+scoring batch is zero-padded to a multiple of the data-axis size and split
+over the devices; the padded rows never reach the bank, which equals the
+unsharded one.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ import torch
 
 from emotts_torch.data.datasets import RankPairDataset, collate_rank_pairs
 from emotts_torch.data.loader import BucketLoader
+from emotts_torch.parallel.mesh import (Mesh, local_mesh, replicate,
+                                        round_up_to_multiple, serving_mesh,
+                                        shard_batch)
 from emotts_torch.train.checkpoint import load_best_params
 from emotts_torch.train.rank_trainer import (
     batch_to_device,
@@ -38,13 +45,22 @@ def compute_intensity_prototypes(
     device="cuda",
     split: str = "train",
     return_storage: bool = False,
+    mesh: Optional[Mesh] = None,
 ):
     """Run the rank model (``params``: its state_dict) over the split and
-    build the prototype bank."""
+    build the prototype bank.  ``mesh`` (default: every GPU where there
+    are several, ``parallel.mesh.serving_mesh``) splits the scoring batches
+    over its devices; ``device`` is the one device without one."""
     device = resolve_device(device)
+    mesh = local_mesh(mesh if mesh is not None else serving_mesh(cfg.mesh, device),
+                      "compute_intensity_prototypes")
     model = build_rank_model(cfg, dtype=torch.float32, device=device)
     model.load_state_dict(params)
-    model.to(device).eval()
+    model.eval()
+    if mesh is None:
+        replicas, devices = [model.to(device)], [device]
+    else:
+        replicas, devices = replicate(mesh, model), list(mesh.devices)
 
     loader = BucketLoader(
         RankPairDataset(cfg, split),
@@ -56,12 +72,22 @@ def compute_intensity_prototypes(
     )
     storage: Storage = {}
     for batch in loader.epoch(0):
-        b = batch_to_device(batch, device)
-        n = b["emo_x"].shape[0]
-        preds = model(b["emo_x"], b["neu_x"], b["emotions"], b["lengths"],
-                      torch.ones((2, n), device=device))
-        intensity = preds[2].cpu().numpy()  # I_i (B, T, n_emo)
-        scores = preds[6].cpu().numpy()  # r_i (B,)
+        n = len(batch["lengths"])
+        # zero-pad the rows so that the batch splits evenly; the padded rows
+        # are sliced off below (never duplicated into the bank)
+        n_pad = round_up_to_multiple(n, len(replicas))
+        padded = {k: np.concatenate([v, np.zeros((n_pad - n, *v.shape[1:]), v.dtype)])
+                  for k, v in batch.items() if isinstance(v, np.ndarray)}
+        shards = shard_batch(mesh, padded) if mesh is not None else [padded]
+        outs = []
+        for replica, dev, shard in zip(replicas, devices, shards):
+            b = batch_to_device(shard, dev)
+            rows = b["emo_x"].shape[0]
+            preds = replica(b["emo_x"], b["neu_x"], b["emotions"], b["lengths"],
+                            torch.ones((2, rows), device=dev))
+            outs.append((preds[2], preds[6]))  # I_i (B, T, n_emo), r_i (B,)
+        intensity = np.concatenate([i.cpu().numpy() for i, _ in outs])[:n]
+        scores = np.concatenate([r.cpu().numpy() for _, r in outs])[:n]
         for i in range(n):
             t = int(batch["lengths"][i])
             key = (int(batch["speakers"][i]), int(batch["emotions"][i]))
@@ -165,7 +191,8 @@ def _bank_from_storage(
     return prototypes
 
 
-def bucketize(cfg: Config, exp_path: Optional[str] = None, device="cuda") -> str:
+def bucketize(cfg: Config, exp_path: Optional[str] = None, device="cuda",
+              mesh: Optional[Mesh] = None) -> str:
     """Load the best rank parameters of an experiment and save
     ``intensity.npy`` and ``intensity_meta.json`` beside them."""
     if exp_path is None:
@@ -173,7 +200,7 @@ def bucketize(cfg: Config, exp_path: Optional[str] = None, device="cuda") -> str
             cfg.data.experiment_path, "rank_model", cfg.inference.rank_exp)
     params = load_best_params(exp_path)
     prototypes, storage = compute_intensity_prototypes(
-        cfg, params, device=device, return_storage=True)
+        cfg, params, device=device, return_storage=True, mesh=mesh)
     out_path = os.path.join(exp_path, "intensity.npy")
     np.save(out_path, prototypes)
     # sidecar: is the sorted bank's level spread more than random bucketing

@@ -12,7 +12,12 @@ transfer of the 16-bit waveform batch to the host.
 package's hand-written kernels (``emotts_torch.ops``).  ``load_synthesizer``
 assembles one from the package's own experiment directories.
 
-Not ported yet: the ``mesh`` argument (sharded synthesis).
+``mesh`` (a ``parallel.mesh.Mesh`` over several devices of one process)
+shards synthesis: the weights are replicated once per device, and every
+batch — the sweep, long-form sentence batches, streamed chunks — is padded
+to a multiple of the data-axis size (padded rows are all-pad phones, so
+their ``mel_len`` is 0) and split over the devices; the results come back in
+row order on the first device.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ from emotts_torch.nn.convert import (fs2_from_flax, hifigan_from_flax,
                                      load_vocoder_checkpoint)
 from emotts_torch.nn.hifigan import (HiFiGANGenerator,
                                      generator_structure_from_params)
+from emotts_torch.parallel.mesh import (Mesh, local_mesh, replicate,
+                                        round_up_to_multiple, serving_mesh,
+                                        shard_batch)
 from emotts_torch.text.g2p import G2P
 from emotts_torch.text.segment import split_sentences
 from emotts_torch.train.checkpoint import load_best_params
@@ -120,7 +128,11 @@ class Synthesizer:
         # dilations/strides deviate from the HiFi-GAN conventions
         # generator_structure_from_params assumes
         device: str = "cuda",
+        mesh: Optional[Mesh] = None,  # shard batches over its devices
     ):
+        self.mesh = local_mesh(mesh, "Synthesizer")
+        if self.mesh is not None:
+            device = self.mesh.devices[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -143,6 +155,14 @@ class Synthesizer:
         self.vocoder = (None if vocoder_params is None else build_vocoder(
             cfg, vocoder_params, vocoder_structure, self.device))
         self.vocoder_params = vocoder_params
+        # one replica of the models per device of the mesh (the first is
+        # self.model / self.vocoder)
+        self._replicas = [(self.model, self.vocoder)]
+        if self.mesh is not None:
+            models = replicate(self.mesh, self.model)
+            vocoders = (replicate(self.mesh, self.vocoder) if self.vocoder is not None
+                        else [None] * len(models))
+            self._replicas = list(zip(models, vocoders))
         self.intensity_bank = intensity_bank
         self.g2p = g2p or G2P(
             cfg.inference.lexicon_path or None,
@@ -155,7 +175,12 @@ class Synthesizer:
     @torch.inference_mode()
     def _mel_forward(self, phonemes, speakers, intensity, max_mel_len,
                      pace, pitch_rate, energy_rate):
-        preds = self.model(
+        return self._over_mesh(self._mel_forward_on, (phonemes, speakers, intensity),
+                               max_mel_len, pace, pitch_rate, energy_rate)
+
+    def _mel_forward_on(self, replica, phonemes, speakers, intensity,
+                        max_mel_len, pace, pitch_rate, energy_rate):
+        preds = replica[0](
             phonemes, speakers, intensity=intensity, pace=pace,
             pitch_rate=pitch_rate, energy_rate=energy_rate,
             max_mel_len=max_mel_len,
@@ -170,16 +195,46 @@ class Synthesizer:
         queued on the device with no host synchronisation between the two.
         The returned mel/lens let the caller stream the remaining chunks
         without running FastSpeech2 again."""
-        mel, lens = self._mel_forward(phonemes, speakers, intensity, max_mel_len,
-                                      pace, pitch_rate, energy_rate)
-        return self._vocode(mel[:, :window]), mel, lens
+        return self._over_mesh(self._first_chunk_on, (phonemes, speakers, intensity),
+                               max_mel_len, pace, pitch_rate, energy_rate, window)
+
+    def _first_chunk_on(self, replica, phonemes, speakers, intensity,
+                        max_mel_len, pace, pitch_rate, energy_rate, window):
+        mel, lens = self._mel_forward_on(replica, phonemes, speakers, intensity,
+                                         max_mel_len, pace, pitch_rate, energy_rate)
+        return self._vocode_on(replica, mel[:, :window]), mel, lens
 
     @torch.inference_mode()
     def _vocode(self, mel):
-        wav = self.vocoder(mel)  # (B, T·hop)
+        return self._over_mesh(self._vocode_on, (mel,))
+
+    def _vocode_on(self, replica, mel):
+        wav = replica[1](mel)  # (B, T·hop)
         # 16-bit PCM on device: the wav files are written as int16 anyway,
         # and it halves the transfer to the host
         return torch.clamp(wav.float() * 32767.0, -32768.0, 32767.0).to(torch.int16)
+
+    def _over_mesh(self, fn, rows, *args):
+        """``fn(replica, *rows, *args)`` over the batch ``rows`` (tensors on
+        ``self.device`` with one leading row axis): on the one replica
+        without a mesh; with one, zero-padded to a multiple of the data-axis
+        size, split over the replicas, and the results (a tensor or a
+        tuple of them) gathered back in row order on ``self.device``."""
+        if self.mesh is None:
+            return fn(self._replicas[0], *rows, *args)
+        n = rows[0].shape[0]
+        n_pad = round_up_to_multiple(n, self.mesh.data)
+        if n_pad != n:
+            rows = [torch.cat([t, t.new_zeros((n_pad - n, *t.shape[1:]))]) for t in rows]
+        shards = shard_batch(self.mesh, dict(enumerate(rows)))
+        outs = [fn(replica, *shard.values(), *args)
+                for replica, shard in zip(self._replicas, shards)]
+        def gather(parts):
+            return torch.cat([t.to(self.device) for t in parts])[:n]
+
+        if isinstance(outs[0], torch.Tensor):
+            return gather(outs)
+        return tuple(gather(parts) for parts in zip(*outs))
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(arr)
@@ -656,7 +711,8 @@ class Synthesizer:
 
 def load_synthesizer(cfg: Config, fs2_exp: Optional[str] = None,
                      rank_exp: Optional[str] = None,
-                     device: str = "cuda") -> Synthesizer:
+                     device: str = "cuda",
+                     mesh: Optional[Mesh] = None) -> Synthesizer:
     """Assemble a Synthesizer from this package's experiment directories:
     the FS2 experiment's ``best/`` export, the rank experiment's
     ``intensity.npy`` (absent: neutral conditioning) and the vocoder
@@ -665,7 +721,14 @@ def load_synthesizer(cfg: Config, fs2_exp: Optional[str] = None,
     ``<experiment_path>/fastspeech2/<inference.fs2_exp>`` and
     ``<experiment_path>/rank_model/<inference.rank_exp>``.  On a CUDA
     device the loaded generator runs through the vocoder kernels
-    (``fused_mrf``, ``use_pallas_resblocks``)."""
+    (``fused_mrf``, ``use_pallas_resblocks``).
+
+    ``mesh`` shards the batches over its devices.  Without one, the default
+    ``mesh.data_parallel: -1`` engages every GPU where there are several
+    (``parallel.mesh.serving_mesh``): the mesh engages only where it would
+    span more than one device, as the reference's does."""
+    if mesh is None:
+        mesh = serving_mesh(cfg.mesh, device)
     fs2_exp = fs2_exp or os.path.join(
         cfg.data.experiment_path, "fastspeech2", cfg.inference.fs2_exp)
     rank_exp = rank_exp or os.path.join(
@@ -677,7 +740,7 @@ def load_synthesizer(cfg: Config, fs2_exp: Optional[str] = None,
     structure = (None if vocoder is None
                  else kernel_vocoder_structure(cfg, vocoder, device))
     return Synthesizer(cfg, fs2_params, vocoder, bank,
-                       vocoder_structure=structure, device=device)
+                       vocoder_structure=structure, device=device, mesh=mesh)
 
 
 def save_vocoder_params_npz(params: Mapping, path: str) -> None:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from emotts_torch.parallel.mesh import global_sum
 from emotts_torch.utils.config import LossConfig
 
 
@@ -30,8 +31,9 @@ def _masked_per_sample_mse(
     target: torch.Tensor,
     valid: torch.Tensor,
     row_weights: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Per-sample masked MSE, then batch mean (optionally row-weighted).
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample masked MSE, then batch mean (optionally row-weighted), as
+    the (numerator, denominator) pair of that mean.
 
     pred/target: (B, T) or (B, T, C); valid: (B, T) bool; row_weights:
     optional (B,)."""
@@ -46,9 +48,19 @@ def _masked_per_sample_mse(
         denom = valid.sum(dim=1).to(pred.dtype)
         per_sample = per_elem.sum(dim=1) / torch.clamp(denom, min=1.0)
     if row_weights is None:
-        return per_sample.mean()
+        return per_sample.sum(), per_sample.new_tensor(float(per_sample.shape[0]))
     w = row_weights.to(per_sample.dtype)
-    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (per_sample * w).sum(), w.sum()
+
+
+def _means(pairs, mesh=None):
+    """(numerator, denominator) pairs → means, each denominator clamped at
+    1.  Under data parallelism both sums are global: one differentiable
+    all-reduce of all of them (``parallel.mesh.global_sum``)."""
+    if mesh is not None and mesh.distributed:
+        flat = global_sum(torch.stack([t for pair in pairs for t in pair]), mesh)
+        pairs = flat.view(-1, 2).unbind(0)
+    return [num / torch.clamp(den, min=1.0) for num, den in pairs]
 
 
 def _gaussian_1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -93,13 +105,13 @@ def _sample_minmax_norm(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 _SSIM_KERNEL = _gaussian_1d()
 
 
-def ssim_loss(
+def _ssim_sums(
     pred: torch.Tensor,
     target: torch.Tensor,
     valid: torch.Tensor,
     row_weights: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """1 − masked-mean SSIM over (B, T, n_mels) mels, clamped to [0, 1]."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Σ SSIM over the valid pixels and their count."""
     if row_weights is not None:
         valid = valid & (row_weights[:, None] > 0)
     kernel = torch.from_numpy(_SSIM_KERNEL).to(device=pred.device, dtype=pred.dtype)
@@ -108,7 +120,17 @@ def ssim_loss(
     smap = _ssim_map(x, y, kernel)  # (B, T, n_mels)
     m = valid[..., None].to(pred.dtype)
     valid_pixels = valid.sum().to(pred.dtype) * pred.shape[-1]
-    mean_ssim = (smap * m).sum() / torch.clamp(valid_pixels, min=1.0)
+    return (smap * m).sum(), valid_pixels
+
+
+def ssim_loss(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    valid: torch.Tensor,
+    row_weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """1 − masked-mean SSIM over (B, T, n_mels) mels, clamped to [0, 1]."""
+    (mean_ssim,) = _means([_ssim_sums(pred, target, valid, row_weights)])
     return torch.clamp(1.0 - mean_ssim, 0.0, 1.0)
 
 
@@ -120,8 +142,12 @@ def fs2_loss(
     phon_len: torch.Tensor,  # (B,)
     cfg: Optional[LossConfig] = None,
     row_weights: Optional[torch.Tensor] = None,  # (B,) eval row mask
+    mesh=None,  # parallel.mesh.Mesh: the batch is this rank's rows
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total, parts): the weighted sum and each weighted part."""
+    """(total, parts): the weighted sum and each weighted part.  Under data
+    parallelism every mean is over the global batch (its numerators and
+    denominators summed over the data axis), so every rank gets the global
+    loss."""
     cfg = cfg or LossConfig()
     (mel_out, postnet_mel_out, log_durations, pred_pitch, avg_pitch,
      pred_energy, avg_energy, _mel_lens) = predictions
@@ -132,18 +158,21 @@ def fs2_loss(
     frame_valid = torch.arange(t, device=dev)[None, :] < mel_len[:, None]
     phone_valid = torch.arange(p, device=dev)[None, :] < phon_len[:, None]
 
-    mel_l = _masked_per_sample_mse(mel_out, mel_target, frame_valid, row_weights)
-    postnet_l = _masked_per_sample_mse(
-        postnet_mel_out, mel_target, frame_valid, row_weights)
     tgt_dur = target_durations.float()
     log_tgt_dur = torch.log1p(tgt_dur) if cfg.log_scale_durations else tgt_dur
-    dur_l = _masked_per_sample_mse(log_durations, log_tgt_dur, phone_valid,
-                                   row_weights)
-    pitch_l = _masked_per_sample_mse(pred_pitch[..., 0], avg_pitch[..., 0],
-                                     phone_valid, row_weights)
-    energy_l = _masked_per_sample_mse(pred_energy[..., 0], avg_energy[..., 0],
-                                      phone_valid, row_weights)
-    ssim_l = ssim_loss(mel_out, mel_target, frame_valid, row_weights)
+    mel_l, postnet_l, dur_l, pitch_l, energy_l, mean_ssim = _means([
+        _masked_per_sample_mse(mel_out, mel_target, frame_valid, row_weights),
+        _masked_per_sample_mse(postnet_mel_out, mel_target, frame_valid,
+                               row_weights),
+        _masked_per_sample_mse(log_durations, log_tgt_dur, phone_valid,
+                               row_weights),
+        _masked_per_sample_mse(pred_pitch[..., 0], avg_pitch[..., 0],
+                               phone_valid, row_weights),
+        _masked_per_sample_mse(pred_energy[..., 0], avg_energy[..., 0],
+                               phone_valid, row_weights),
+        _ssim_sums(mel_out, mel_target, frame_valid, row_weights),
+    ], mesh)
+    ssim_l = torch.clamp(1.0 - mean_ssim, 0.0, 1.0)
 
     parts = {
         "ssim_loss": ssim_l * cfg.ssim_loss_weight,

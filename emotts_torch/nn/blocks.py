@@ -17,7 +17,9 @@ softmax compute in fp32 and cast back where the reference does.
 Training mode is a call argument, as in the reference: ``deterministic=False``
 switches dropout on, and every random draw comes from the ``generator`` the
 caller passes (the trainer owns and checkpoints it), never from the global
-one.  Rematerialisation (the reference's ``remat``) is not ported: it changes
+one; under data parallelism the trainer wraps it in a
+``parallel.mesh.RowDraws``, and every draw is this rank's rows of the draw a
+one-process run on the global batch makes.  Rematerialisation (the reference's ``remat``) is not ported: it changes
 memory, not numbers.
 """
 
@@ -32,32 +34,35 @@ import torch.nn.functional as F
 from torch import nn
 
 from emotts_torch.ops.attention import fused_attention
+from emotts_torch.parallel.mesh import base_generator, draw_rows, row_index
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """Inverted dropout with an explicit generator (on the device of ``x``):
-    an entry is kept with probability 1 - rate and scaled by 1 / (1 - rate)."""
+    an entry is kept with probability 1 - rate and scaled by 1 / (1 - rate).
+    Under data parallelism ``generator`` is a ``RowDraws``: the mask is this
+    rank's rows of the mask of the global batch."""
     if rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs the caller's torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = draw_rows(torch.rand, x.shape, generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
 
-def draw_attention_seeds(batch: int, generator: Optional[torch.Generator],
-                         device) -> torch.Tensor:
+def draw_attention_seeds(batch: int, generator, device) -> torch.Tensor:
     """(B,) int32 per-example dropout seeds for the fused kernel:
-    ``base + arange(B)`` with int32 wrap-around, ``base`` one int32 drawn from
-    the generator per call, so example i keeps its stream whatever the batch
-    around it.  Stays on the device: no host read."""
+    ``base + row`` with int32 wrap-around, ``base`` one int32 drawn from
+    the generator per call and ``row`` the example's row in the global batch
+    (``arange(B)`` in one process), so example i keeps its stream whatever
+    the batch around it and whichever rank runs it.  Stays on the device: no
+    host read."""
     if generator is None:
         raise ValueError("dropout needs the caller's torch.Generator")
-    base = torch.randint(-2 ** 31, 2 ** 31, (1,), generator=generator,
+    base = torch.randint(-2 ** 31, 2 ** 31, (1,), generator=base_generator(generator),
                          device=device, dtype=torch.int64)
-    seeds = base + torch.arange(batch, device=device, dtype=torch.int64)
+    seeds = base + row_index(generator, batch, device)
     return (((seeds + 2 ** 31) % 2 ** 32) - 2 ** 31).to(torch.int32)
 
 

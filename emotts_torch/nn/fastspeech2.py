@@ -106,11 +106,25 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool) -> torch.Tensor
     ``r = 0.99·r + 0.01·stat`` — the biased variance too.  (``BatchNorm1d``'s
     own update keeps the unbiased variance and counts ``momentum`` the other
     way round, so it is not used.)  Otherwise the running statistics are
-    used."""
+    used.  Where ``bn.process_group`` is set
+    (``parallel.mesh.set_batch_norm_group``) the batch is the global one:
+    Σx and Σx² are summed over the data axis by a differentiable all-reduce,
+    as the reference's pjit step takes them over the sharded batch."""
     x = x.float()
     if train:
-        mean = x.mean(dim=(0, 1))
-        var = torch.clamp((x * x).mean(dim=(0, 1)) - mean * mean, min=0.0)
+        group = getattr(bn, "process_group", None)
+        if group is None:
+            mean = x.mean(dim=(0, 1))
+            var = torch.clamp((x * x).mean(dim=(0, 1)) - mean * mean, min=0.0)
+        else:
+            import torch.distributed as dist
+            from torch.distributed.nn.functional import all_reduce
+
+            sums = all_reduce(torch.stack([x.sum(dim=(0, 1)),
+                                           (x * x).sum(dim=(0, 1))]), group=group)
+            n = x.shape[0] * x.shape[1] * dist.get_world_size(group)
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
                                   + (1 - BN_MOMENTUM) * mean)

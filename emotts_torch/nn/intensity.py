@@ -5,7 +5,8 @@ Counterpart of ``emotts/nn/intensity.py``:
 * the two mixup branches run through the extractor as one batched stream
   (``cat([X_i, X_j])`` on the batch axis: 2B rows, one pass);
 * mixup weights λ are uniform on [0, 1) (Beta(1, 1)), drawn from the
-  caller's generator, or supplied (validation uses a linspace grid,
+  caller's generator (under data parallelism: this rank's columns of the
+  global (2, B) draw), or supplied (validation uses a linspace grid,
   bucketization λ ≡ 1);
 * inputs are padded (B, T, n_mels + 2) with a length vector.
 """
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from emotts_torch.nn.blocks import CastLinear, FFTStack, sequence_mask
+from emotts_torch.parallel.mesh import draw_rows, grouped
 
 
 def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -97,8 +99,8 @@ class RankModel(nn.Module):
         if lambdas is None:
             if mixup_generator is None:
                 raise ValueError("sampling λ needs the caller's torch.Generator")
-            lambdas = torch.rand((2, b), generator=mixup_generator,
-                                 device=emo_x.device)
+            lambdas = draw_rows(torch.rand, (2, b), mixup_generator, dim=1,
+                                device=emo_x.device)
         lam_i = lambdas[0][:, None, None]  # (B, 1, 1)
         lam_j = lambdas[1][:, None, None]
         xi = lam_i * emo_x + (1.0 - lam_i) * neu_x
@@ -109,7 +111,7 @@ class RankModel(nn.Module):
             torch.cat([xi, xj], dim=0),
             torch.cat([lengths, lengths], dim=0),
             torch.cat([emotions, emotions], dim=0),
-            deterministic, dropout_generator,
+            deterministic, grouped(dropout_generator, 2),
         )
         ii, ij = logits[:b], logits[b:]
 

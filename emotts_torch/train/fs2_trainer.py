@@ -1,7 +1,7 @@
 """FastSpeech2 trainer: teacher-forced steps conditioned on a frozen
 IntensityExtractor.
 
-Counterpart of ``emotts/train/fs2_trainer.py`` for one device: AdamW,
+Counterpart of ``emotts/train/fs2_trainer.py``: AdamW,
 per-epoch scalars for every loss part, step-indexed checkpoints, a
 best-on-validation export, early stopping, vocoded validation samples, and
 the train-time intensity bridge — the frozen rank-model extractor's
@@ -15,6 +15,13 @@ state owns and checkpoints.  A sampled validation epoch writes the
 predicted-against-ground-truth mel grid ``<exp>/mels/valid_epoch_{epoch}.png``
 (where matplotlib is installed), and ``profile_epoch`` runs under
 ``torch.profiler`` with its trace under ``<exp>/profile``.
+
+Under data parallelism (a process group, one process per device, as in
+``RankTrainer``) the model runs in DDP, each process loads its rows of every
+global batch and runs the frozen extractor on them, the dropout masks, the
+PostNet's BatchNorm statistics and every loss denominator are those of the
+global batch, and only rank 0 writes the experiment's files and vocoded
+samples.
 """
 
 from __future__ import annotations
@@ -38,13 +45,16 @@ from emotts_torch.nn.init import seeded_init_
 from emotts_torch.nn.intensity import IntensityExtractor
 from emotts_torch.nn.length_regulator import segment_mean
 from emotts_torch.ops.attention import resolve_fused_attention
+from emotts_torch.parallel.mesh import (Mesh, data_parallel, row_draws,
+                                        set_batch_norm_group)
 from emotts_torch.train.checkpoint import CheckpointManager
-from emotts_torch.train.metrics import (EpochAverager, MetricsWriter, StepTimer,
+from emotts_torch.train.metrics import (EpochAverager, StepTimer,
                                         profile_trace)
-from emotts_torch.train.rank_trainer import _read_back, resolve_device
+from emotts_torch.train.rank_trainer import (_read_back, open_experiment,
+                                             trainer_mesh, valid_rows)
 from emotts_torch.train.state import TrainState, make_optimizer
 from emotts_torch.utils.config import Config
-from emotts_torch.utils.experiment import increment_path, set_seed
+from emotts_torch.utils.experiment import set_seed
 from emotts_torch.utils.plotting import plot_mel_grid
 
 _BATCH_TENSORS = ("phonemes", "durations", "mel", "pitch", "energy", "rank_x",
@@ -126,9 +136,10 @@ class FS2Trainer:
     epoch under ``<exp>/wavs``."""
 
     def __init__(self, cfg: Config, extractor_params: Dict[str, torch.Tensor],
-                 vocoder: Optional[nn.Module] = None, device="cuda"):
+                 vocoder: Optional[nn.Module] = None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device, self.mesh = trainer_mesh(cfg, device, mesh, "FS2Trainer")
         self.vocoder = vocoder
         model = build_fastspeech2(cfg, device=self.device)
         init_fs2_variables(model, cfg.train_fs2.seed)
@@ -140,6 +151,8 @@ class FS2Trainer:
             model, make_optimizer(cfg.train_fs2, model.parameters()),
             cfg.train_fs2.seed, self.device, streams=("dropout",),
         )
+        set_batch_norm_group(model, self.mesh)
+        self._step_model = data_parallel(model, self.mesh)
 
     @property
     def model(self) -> FastSpeech2:
@@ -153,22 +166,24 @@ class FS2Trainer:
         frames = self.extractor(b["rank_x"], b["mel_len"], b["emotions"])
         return segment_mean(frames, b["durations"])
 
-    def _forward(self, b: Dict[str, torch.Tensor], deterministic: bool):
-        return self.state.model(
+    def _forward(self, b: Dict[str, torch.Tensor], deterministic: bool,
+                 model: Optional[nn.Module] = None):
+        return (model or self.state.model)(
             b["phonemes"], b["speakers"], b["durations"], b["pitch"],
             b["energy"], self.intensity_rep(b), max_mel_len=b["mel"].shape[1],
             deterministic=deterministic,
-            generator=self.state.generators["dropout"],
+            generator=row_draws(self.state.generators["dropout"], self.mesh),
         )
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
-        """One optimizer step on a collated batch (dropout on, BatchNorm on
-        batch statistics, which moves its running statistics)."""
+        """One optimizer step on a collated batch — this rank's rows of the
+        global batch (dropout on, BatchNorm on batch statistics, which moves
+        its running statistics)."""
         state = self.state
         b = batch_to_device(batch, self.device)
-        preds = self._forward(b, deterministic=False)
+        preds = self._forward(b, deterministic=False, model=self._step_model)
         total, parts = fs2_loss(preds, b["mel"], b["durations"], b["mel_len"],
-                                b["phon_len"], self.cfg.loss)
+                                b["phon_len"], self.cfg.loss, mesh=self.mesh)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
         state.optimizer.step()
@@ -185,28 +200,42 @@ class FS2Trainer:
         preds = self._forward(b, deterministic=True)
         _, metrics = fs2_loss(preds, b["mel"], b["durations"], b["mel_len"],
                               b["phon_len"], self.cfg.loss,
-                              row_weights=b.get("row_valid"))
+                              row_weights=b.get("row_valid"), mesh=self.mesh)
         return _read_back(metrics), preds[0]
 
     # ------------------------------------------------------------------
 
-    def _collate(self, examples, frame_bucket: int):
-        phone_max = max(len(e.phonemes) for e in examples)
+    def _phone_bucket(self, phone_max: int) -> int:
         phone_bucket = pick_bucket(phone_max, self.cfg.bucketing.phone_buckets)
         if phone_bucket < 0:
             phone_bucket = self.cfg.bucketing.phone_buckets[-1]
+        return phone_bucket
+
+    def _collate(self, examples, frame_bucket: int,
+                 phone_bucket: Optional[int] = None):
+        if phone_bucket is None:
+            phone_bucket = self._phone_bucket(max(len(e.phonemes) for e in examples))
         return collate_fs2(examples, phone_bucket, frame_bucket)
 
     def _loader(self, split: str, shuffle: bool) -> BucketLoader:
         cfg = self.cfg
+        dataset = FS2Dataset(cfg, split)
         return BucketLoader(
-            FS2Dataset(cfg, split),
+            dataset,
             buckets=cfg.bucketing.frame_buckets,
             batch_size=cfg.train_fs2.batch_size,
             collate=self._collate,
             shuffle=shuffle,
             seed=cfg.data.split_seed,
             drop_last=shuffle,  # keep all eval data
+            # eval partial batches pad (cyclic repeat) to split over the mesh
+            pad_to_multiple=self.mesh.data,
+            # each process loads its rows of every global batch, all of them
+            # padded to the phone bucket of the global batch
+            process_index=self.mesh.rank,
+            process_count=self.mesh.data,
+            batch_shape=lambda idxs: {"phone_bucket": self._phone_bucket(
+                max(dataset.phone_count_of(i) for i in idxs))},
         )
 
     def train_epoch(self, loader: BucketLoader, epoch: int, writer=None) -> Dict:
@@ -229,9 +258,11 @@ class FS2Trainer:
         sampled = False
         for batch in loader.epoch(epoch):
             metrics, mel_pred = self.eval_step(batch)
-            rv = batch.get("row_valid")
-            avg.update(metrics, weight=float(rv.sum()) if rv is not None else 1.0)
-            if exp_path and not sampled and epoch % plot_every == 0:
+            avg.update(metrics, weight=valid_rows(batch.get("row_valid"),
+                                                  self.mesh, self.device))
+            # rank 0's rows are the first rows of the global batch
+            if (exp_path and self.mesh.primary and not sampled
+                    and epoch % plot_every == 0):
                 mels_dir = Path(exp_path) / "mels"
                 mels_dir.mkdir(exist_ok=True)
                 plot_mel_grid(mel_pred.float().cpu().numpy(), batch["mel"],
@@ -278,15 +309,10 @@ class FS2Trainer:
         cfg = self.cfg
         tr = cfg.train_fs2
         set_seed(tr.seed)
-        if exp_path is None:
-            exp_path = increment_path(
-                os.path.join(cfg.data.experiment_path, "fastspeech2"),
-                subdirs=("wavs", "mels"),
-            )
-        elif resume:
-            self.restore(exp_path)
-        writer = MetricsWriter(exp_path)
-        ckpt = CheckpointManager(exp_path, keep=tr.keep_checkpoints)
+        exp_path, writer, ckpt = open_experiment(
+            self, exp_path, resume, os.path.join(cfg.data.experiment_path, "fastspeech2"),
+            tr.keep_checkpoints, subdirs=("wavs", "mels"))
+        verbose = verbose and self.mesh.primary
 
         train_loader = self._loader("train", shuffle=True)
         valid_loader = self._loader("valid", shuffle=False)
@@ -299,7 +325,8 @@ class FS2Trainer:
         with torch.autograd.set_detect_anomaly(bool(tr.debug_nans)):
             for epoch in range(tr.n_epochs):
                 with (profile_trace(os.path.join(exp_path, "profile"), self.device)
-                      if epoch == tr.profile_epoch else contextlib.nullcontext()):
+                      if epoch == tr.profile_epoch and self.mesh.primary
+                      else contextlib.nullcontext()):
                     train_means = self.train_epoch(train_loader, epoch, writer)
                 next_step = global_step + train_loader.batches_per_epoch(epoch)
                 # the final epoch always validates so best/ is always exported
@@ -318,11 +345,13 @@ class FS2Trainer:
                         print(f"[fs2] epoch {epoch}: "
                               f"train {train_means.get('total_loss', 0):.4f} "
                               f"valid {val_loss:.4f}")
-                    ckpt.save(self.state)
+                    if ckpt is not None:
+                        ckpt.save(self.state)
                     if val_loss < best_val:
                         best_val = val_loss
                         patience = 0
-                        ckpt.save_best(self.state.model.state_dict())
+                        if ckpt is not None:
+                            ckpt.save_best(self.state.model.state_dict())
                     else:
                         patience += 1
                         if patience >= tr.patience:
@@ -330,5 +359,6 @@ class FS2Trainer:
                 global_step = next_step
                 if global_step >= tr.max_iterations:
                     break
-        writer.close()
+        if writer is not None:
+            writer.close()
         return exp_path

@@ -1,12 +1,19 @@
 """Rank-model trainer: train/eval steps and the epoch loop.
 
-Counterpart of ``emotts/train/rank_trainer.py`` for one device: AdamW, an
-epoch loop with early stopping on a validation loss, the deterministic
-λ = linspace validation pass beside the informative λ = (1, 0) pass,
-per-epoch scalars, step-indexed checkpoints and a best-params export.
+Counterpart of ``emotts/train/rank_trainer.py``: AdamW, an epoch loop with
+early stopping on a validation loss, the deterministic λ = linspace
+validation pass beside the informative λ = (1, 0) pass, per-epoch scalars,
+step-indexed checkpoints and a best-params export.
 
 Mixup weights and dropout masks come from two ``torch.Generator``s that the
 train state owns and checkpoints, so a resumed run continues their streams.
+Under data parallelism (a process group, one process per device: ``mesh``,
+default ``make_mesh(cfg.mesh)``) the model runs in DDP, each process loads
+its rows of every global batch, the draws and the loss are those of the
+global batch, and a step equals one process's step on that batch.  Only
+rank 0 creates the experiment directory and writes checkpoints, scalars and
+plots; every rank restores, and the decisions (best, early stop) come from
+global numbers, so the ranks stay in lockstep.
 Metrics are read back from the device once per step.  Validation on the
 artifact epochs (``artifact_every_epochs``) and the last writes
 ``<exp>/tsne_epoch_{epoch}.png`` of the pooled features (where scikit-learn
@@ -29,6 +36,9 @@ from emotts_torch.losses.rank import rank_loss
 from emotts_torch.nn.init import seeded_init_
 from emotts_torch.nn.intensity import RankModel
 from emotts_torch.ops.attention import resolve_fused_attention
+from emotts_torch.parallel.mesh import (Mesh, broadcast_object, data_parallel,
+                                        gather_objects, global_sum, make_mesh,
+                                        one_device, row_draws)
 from emotts_torch.train.checkpoint import CheckpointManager
 from emotts_torch.train.metrics import (EpochAverager, MetricsWriter, StepTimer,
                                         profile_trace)
@@ -81,10 +91,19 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
             for k in _BATCH_TENSORS if k in batch}
 
 
+def trainer_mesh(cfg: Config, device, mesh: Optional[Mesh], what: str
+                 ) -> Tuple[torch.device, Mesh]:
+    """A trainer's device and data axis: ``mesh`` (default
+    ``make_mesh(cfg.mesh)`` over ``device``), one device per process."""
+    device = resolve_device(device)
+    mesh = mesh if mesh is not None else make_mesh(cfg.mesh, devices=[device])
+    return one_device(mesh, what), mesh
+
+
 class RankTrainer:
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device, self.mesh = trainer_mesh(cfg, device, mesh, "RankTrainer")
         model = build_rank_model(cfg, device=self.device)
         init_rank_model(model, cfg.train_rank.seed)
         model.to(self.device)
@@ -92,6 +111,7 @@ class RankTrainer:
             model, make_optimizer(cfg.train_rank, model.parameters()),
             cfg.train_rank.seed, self.device,
         )
+        self._step_model = data_parallel(model, self.mesh)
 
     @property
     def model(self) -> RankModel:
@@ -101,18 +121,19 @@ class RankTrainer:
 
     def train_step(self, batch: Dict[str, np.ndarray],
                    lambdas: Optional[torch.Tensor] = None) -> Dict[str, float]:
-        """One optimizer step on a collated batch; λ is drawn from the mixup
-        generator unless given."""
+        """One optimizer step on a collated batch (this rank's rows of the
+        global batch); λ is drawn from the mixup generator unless given."""
         rm = self.cfg.rank_model
-        state = self.state
+        state, mesh = self.state, self.mesh
         b = batch_to_device(batch, self.device)
-        preds = state.model(
+        preds = self._step_model(
             b["emo_x"], b["neu_x"], b["emotions"], b["lengths"], lambdas,
             deterministic=False,
-            mixup_generator=state.generators["mixup"],
-            dropout_generator=state.generators["dropout"],
+            mixup_generator=row_draws(state.generators["mixup"], mesh),
+            dropout_generator=row_draws(state.generators["dropout"], mesh),
         )
-        loss, metrics = rank_loss(preds, b["emotions"], rm.alpha, rm.beta)
+        loss, metrics = rank_loss(preds, b["emotions"], rm.alpha, rm.beta,
+                                  mesh=mesh)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
@@ -121,19 +142,23 @@ class RankTrainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, np.ndarray]) -> Tuple[Dict[str, float], np.ndarray]:
+        """Metrics of the global batch (identical on every rank) and this
+        rank's pooled features."""
         rm = self.cfg.rank_model
-        model = self.state.model
+        model, mesh = self.state.model, self.mesh
         b = batch_to_device(batch, self.device)
         n = b["emo_x"].shape[0]
         rv = b.get("row_valid")
         # 1) reference-parity pass: BOTH branches share the same λ = linspace
         #    row, which pins the RankNet BCE at ln 2 for any model — kept for
-        #    parity, logged as valid/loss etc.
-        lambdas = torch.linspace(0.0, 1.0, n, device=self.device)[None, :].repeat(2, 1)
+        #    parity, logged as valid/loss etc.  The row is the global batch's.
+        lam = eval_lambdas(n, mesh, self.device)
+        lambdas = lam[None, :].repeat(2, 1)
         preds = model(b["emo_x"], b["neu_x"], b["emotions"], b["lengths"], lambdas)
         # row_valid masks rows the loader duplicated to fill a batch out of
         # the eval reductions
-        _, metrics = rank_loss(preds, b["emotions"], rm.alpha, rm.beta, row_weights=rv)
+        _, metrics = rank_loss(preds, b["emotions"], rm.alpha, rm.beta,
+                               row_weights=rv, mesh=mesh)
         # 2) informative pass: a REAL pair — branch i gets the pure emotional
         #    input (λ ≡ 1), branch j the pure neutral (λ ≡ 0), so the ranking
         #    target is 1 and the metric moves with the model's margin.
@@ -143,14 +168,16 @@ class RankTrainer:
         lam_pairs = torch.stack([torch.ones(n, device=self.device),
                                  torch.zeros(n, device=self.device)])
         preds_p = model(b["emo_x"], b["neu_x"], b["emotions"], b["lengths"], lam_pairs)
-        _, m_inf = rank_loss(preds_p, b["emotions"], rm.alpha, rm.beta, row_weights=rv)
+        _, m_inf = rank_loss(preds_p, b["emotions"], rm.alpha, rm.beta,
+                             row_weights=rv, mesh=mesh)
         order = (preds_p[6].reshape(-1) > preds_p[7].reshape(-1)).float()
         w = torch.ones_like(order) if rv is None else rv.float()
+        correct, n_valid = global_sum(torch.stack([(order * w).sum(), w.sum()]), mesh)
         metrics = dict(metrics)
         metrics["loss_informative"] = m_inf["loss"]
         metrics["mixup_loss_pairs"] = m_inf["mixup_loss"]
         metrics["rank_loss_pairs"] = m_inf["rank_loss"]
-        metrics["pair_order_acc"] = (order * w).sum() / torch.clamp(w.sum(), min=1.0)
+        metrics["pair_order_acc"] = correct / torch.clamp(n_valid, min=1.0)
         return _read_back(metrics), preds[4].cpu().numpy()  # pooled h_i
 
     # ------------------------------------------------------------------
@@ -165,6 +192,11 @@ class RankTrainer:
             shuffle=shuffle,
             seed=cfg.data.split_seed,
             drop_last=shuffle,  # keep all eval data
+            # eval partial batches pad (cyclic repeat) to split over the mesh
+            pad_to_multiple=self.mesh.data,
+            # each process loads its rows of every global batch
+            process_index=self.mesh.rank,
+            process_count=self.mesh.data,
         )
 
     def train_epoch(self, loader: BucketLoader, epoch: int, writer=None) -> Dict:
@@ -183,24 +215,31 @@ class RankTrainer:
 
     def validate_epoch(self, loader: BucketLoader, epoch: int, writer=None,
                        exp_path: Optional[str] = None) -> Dict:
-        """Validation means; with ``exp_path``, also the t-SNE image of the
-        pooled features of the rows the loader did not repeat."""
+        """Validation means (weighted by each batch's valid rows); with
+        ``exp_path``, also the t-SNE image of the pooled features of the
+        rows the loader did not repeat, gathered from every rank and drawn
+        by rank 0."""
         avg = EpochAverager()
         h_all, emo_all, spk_all, lam_all = [], [], [], []
         for batch in loader.epoch(epoch):
             metrics, h = self.eval_step(batch)
             rv = batch.get("row_valid")
-            avg.update(metrics, weight=float(rv.sum()) if rv is not None else 1.0)
+            avg.update(metrics, weight=valid_rows(rv, self.mesh, self.device))
             if exp_path is not None:
                 keep = rv > 0 if rv is not None else slice(None)
+                n = len(batch["emotions"])
                 h_all.append(h[keep])
                 emo_all.append(batch["emotions"][keep])
                 spk_all.append(batch["speakers"][keep])
-                lam_all.append(np.linspace(0, 1, len(batch["emotions"]))[keep])
+                lam_all.append(eval_lambdas(n, self.mesh, "cpu").numpy()[keep])
         means = avg.means()
         if writer is not None:
             writer.scalars(means, epoch, prefix="valid/")
-        if h_all:
+        if exp_path is not None:
+            parts = gather_objects((h_all, emo_all, spk_all, lam_all), self.mesh)
+            h_all, emo_all, spk_all, lam_all = (
+                [a for p in parts for a in p[i]] for i in range(4))
+        if h_all and self.mesh.primary:
             plot_tsne(
                 np.concatenate(h_all), np.concatenate(emo_all),
                 np.concatenate(spk_all), np.concatenate(lam_all),
@@ -223,13 +262,10 @@ class RankTrainer:
         cfg = self.cfg
         tr = cfg.train_rank
         set_seed(tr.seed)
-        if exp_path is None:
-            exp_path = increment_path(
-                os.path.join(cfg.data.experiment_path, "rank_model"))
-        elif resume:
-            self.restore(exp_path)
-        writer = MetricsWriter(exp_path)
-        ckpt = CheckpointManager(exp_path, keep=tr.keep_checkpoints)
+        exp_path, writer, ckpt = open_experiment(
+            self, exp_path, resume, os.path.join(cfg.data.experiment_path, "rank_model"),
+            tr.keep_checkpoints)
+        verbose = verbose and self.mesh.primary
 
         train_loader = self._loader("train", shuffle=True)
         valid_loader = self._loader("test", shuffle=False)
@@ -243,7 +279,8 @@ class RankTrainer:
         with anomaly:
             for epoch in range(tr.n_epochs):
                 with (profile_trace(os.path.join(exp_path, "profile"), self.device)
-                      if epoch == tr.profile_epoch else contextlib.nullcontext()):
+                      if epoch == tr.profile_epoch and self.mesh.primary
+                      else contextlib.nullcontext()):
                     train_means = self.train_epoch(train_loader, epoch, writer)
                 next_step = global_step + train_loader.batches_per_epoch(epoch)
                 # the final epoch always validates so best/ is always exported
@@ -264,11 +301,13 @@ class RankTrainer:
                             f"informative {val_means.get('loss_informative', 0):.4f} "
                             f"pair_acc {val_means.get('pair_order_acc', 0):.3f}"
                         )
-                    ckpt.save(self.state)
+                    if ckpt is not None:
+                        ckpt.save(self.state)
                     if val_loss < best_val:
                         best_val = val_loss
                         patience = 0
-                        ckpt.save_best(self.state.model.state_dict())
+                        if ckpt is not None:
+                            ckpt.save_best(self.state.model.state_dict())
                     else:
                         patience += 1
                         if patience >= tr.patience:
@@ -276,8 +315,41 @@ class RankTrainer:
                 global_step = next_step
                 if global_step >= tr.max_iterations:
                     break
-        writer.close()
+        if writer is not None:
+            writer.close()
         return exp_path
+
+
+def eval_lambdas(n: int, mesh: Mesh, device) -> torch.Tensor:
+    """This rank's n entries of the validation λ = linspace(0, 1) row of the
+    global batch."""
+    lo = mesh.row_offset(n)
+    return torch.linspace(0.0, 1.0, n * mesh.data, device=device)[lo:lo + n]
+
+
+def valid_rows(row_valid: Optional[np.ndarray], mesh: Mesh, device) -> float:
+    """The weight of an eval batch in its epoch's means: the valid rows of
+    the global batch (1.0 without a ``row_valid``)."""
+    if row_valid is None:
+        return 1.0
+    return float(global_sum(torch.tensor(float(row_valid.sum()), device=device), mesh))
+
+
+def open_experiment(trainer, exp_path: Optional[str], resume: bool, base: str,
+                    keep: int, subdirs: tuple = ()):
+    """(experiment directory, MetricsWriter, CheckpointManager) of a fit.
+    A new directory is made by rank 0 alone and its path broadcast, so that
+    the ranks do not make one each; a resumed run restores on every rank.
+    The writer and the checkpoint manager are rank 0's (None elsewhere)."""
+    mesh = trainer.mesh
+    if exp_path is None:
+        exp_path = broadcast_object(
+            increment_path(base, subdirs) if mesh.primary else None, mesh)
+    elif resume:
+        trainer.restore(exp_path)
+    if not mesh.primary:
+        return exp_path, None, None
+    return exp_path, MetricsWriter(exp_path), CheckpointManager(exp_path, keep=keep)
 
 
 def _read_back(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -1,6 +1,6 @@
 """HiFi-GAN vocoder trainer: adversarial training of the V1 generator.
 
-Counterpart of ``emotts/train/vocoder_trainer.py`` for one device.  The
+Counterpart of ``emotts/train/vocoder_trainer.py``.  The
 generator the synthesis path serves (``emotts_torch/nn/hifigan.py``) trains
 against the multi-period and multi-scale discriminators
 (``emotts_torch/nn/hifigan_disc.py``) with the HiFi-GAN objective (LSGAN
@@ -22,8 +22,19 @@ The generator is built without kernel flags, as the reference's trainer
 builds it: the step differentiates the plain path, and no vocoder kernel
 has a backward.  ``condition: "fs2"`` fine-tunes on teacher-forced
 FastSpeech2 mels (:func:`predicted_mel_pairs`, through ``Evaluator``, whose
-fp32 models take the attention kernel on the card).  One process:
-``process_index`` is 0 and the samplers see every utterance.
+fp32 models take the attention kernel on the card).
+
+Under data parallelism (a process group, one process per device) each
+process samples ``batch_size`` segments from its own share of the utterances
+(``wav_paths[rank::W]``, seeded with ``seed + rank + start_step``), so the
+global batch is ``batch_size × W``, as the reference's
+``make_array_from_process_local_data`` assembles it.  The GAN step is not
+wrapped in DDP: it runs each discriminator on real and fake and pulls the
+generator's loss back through the just-updated discriminators, more than
+the one forward per backward DDP's reducer expects.  Each model's gradients
+are averaged over the ranks instead (one flattened all-reduce) before its
+AdamW step; every loss is a mean over equal local batches, so that average
+is the global batch's gradient.  Only rank 0 writes the experiment.
 """
 
 from __future__ import annotations
@@ -52,12 +63,14 @@ from emotts_torch.nn.hifigan_disc import (
     MultiScaleDiscriminator,
 )
 from emotts_torch.nn.init import seeded_init_
+from emotts_torch.parallel.mesh import (Mesh, average_gradients, global_sum,
+                                        replicate)
 from emotts_torch.train.checkpoint import CheckpointManager
-from emotts_torch.train.metrics import EpochAverager, MetricsWriter, StepTimer
-from emotts_torch.train.rank_trainer import _read_back, resolve_device
+from emotts_torch.train.metrics import EpochAverager, StepTimer
+from emotts_torch.train.rank_trainer import open_experiment, trainer_mesh
 from emotts_torch.train.state import AdamW, TrainState
 from emotts_torch.utils.config import Config
-from emotts_torch.utils.experiment import increment_path, set_seed
+from emotts_torch.utils.experiment import set_seed
 
 
 def build_vocoder_generator(cfg: Config) -> HiFiGANGenerator:
@@ -222,10 +235,10 @@ class VocoderTrainer:
     and train with AdamW (b1 0.8, b2 0.99, weight decay 0.01, fp32 moments)
     at the staircase-decayed learning rate."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", mesh: Optional[Mesh] = None):
         self.cfg = cfg
         vc = cfg.train_vocoder
-        self.device = resolve_device(device)
+        self.device, self.mesh = trainer_mesh(cfg, device, mesh, "VocoderTrainer")
         self.dtype = getattr(torch, vc.compute_dtype)
         self.segment_samples = vc.segment_frames * cfg.audio.hop_length
         self.adversarial = vc.adversarial_weight > 0.0
@@ -234,6 +247,8 @@ class VocoderTrainer:
         init = torch.Generator().manual_seed(vc.seed)
         gen = seeded_init_(build_vocoder_generator(cfg), init).to(self.device)
         disc = seeded_init_(build_discriminators(cfg), init).to(self.device)
+        for model in (gen, disc):  # rank 0's weights on every rank
+            replicate(self.mesh, model)
 
         def optimizer(params):
             return AdamW(params, lr=vc.learning_rate, weight_decay=0.01,
@@ -270,8 +285,9 @@ class VocoderTrainer:
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
         """One step on ``{"y": (B, S)}`` (plus ``"mel_cond"`` (B, T, M) under
         ``condition: "fs2"``): the discriminators' update, then the
-        generator's; the metrics under the reference's names.  Afterwards
-        each parameter's ``.grad`` holds the gradient its update used."""
+        generator's; the metrics under the reference's names, averaged over
+        the ranks.  Afterwards each parameter's ``.grad`` holds the gradient
+        its update used."""
         vc = self.cfg.train_vocoder
         y = torch.from_numpy(np.ascontiguousarray(batch["y"])).to(self.device)
         with torch.no_grad():
@@ -291,6 +307,7 @@ class VocoderTrainer:
             d_loss = discriminator_loss(real_outs, fake_outs)
             disc.optimizer.zero_grad(set_to_none=True)
             d_loss.backward()
+            average_gradients(disc.model.parameters(), self.mesh)
             disc.optimizer.step()
             disc.step += 1
             metrics["d_loss"] = d_loss.detach()
@@ -321,9 +338,12 @@ class VocoderTrainer:
             gen.optimizer.zero_grad(set_to_none=True)
             total.backward()
             metrics.update(mel_l1=l_mel, g_total=total)
+        average_gradients(gen.model.parameters(), self.mesh)
         gen.optimizer.step()
         gen.step += 1
-        return _read_back(metrics)
+        values = global_sum(torch.stack([v.detach().float() for v in metrics.values()]),
+                            self.mesh) / self.mesh.data
+        return dict(zip(metrics.keys(), values.tolist()))
 
     # ------------------------------------------------------------------
 
@@ -351,29 +371,29 @@ class VocoderTrainer:
         ``<corpus_path>/*/*.wav``; ``pairs``: precomputed
         :func:`predicted_mel_pairs` for ``condition: "fs2"``."""
         cfg, vc = self.cfg, self.cfg.train_vocoder
+        mesh = self.mesh
         set_seed(vc.seed)
-        if exp_path is None:
-            exp_path = increment_path(os.path.join(cfg.data.experiment_path, "vocoder"))
-        os.makedirs(exp_path, exist_ok=True)
-        if resume:
-            self.restore(exp_path)
+        exp_path, writer, ckpt = open_experiment(
+            self, exp_path, resume, os.path.join(cfg.data.experiment_path, "vocoder"),
+            vc.keep_checkpoints)
         # the sampler seed folds in the (restored) step counter, so that a
-        # resumed run draws fresh crops instead of replaying the first run's
+        # resumed run draws fresh crops instead of replaying the first run's;
+        # each process samples its own share of the utterances
         start = self.state.step
-        sampler_seed = vc.seed + start
+        sampler_seed = vc.seed + mesh.rank + start
         if self.condition == "fs2":
             if pairs is None:
                 pairs = predicted_mel_pairs(cfg, device=self.device)
+            pairs = pairs[mesh.rank::mesh.data]
             sampler = PairedSegmentSampler(
                 pairs, vc.segment_frames, cfg.audio.hop_length,
                 mel_floor=float(np.log(cfg.audio.clip_val)), seed=sampler_seed)
         else:
             if wav_paths is None:
                 wav_paths = sorted(glob(os.path.join(cfg.data.corpus_path, "*", "*.wav")))
+            wav_paths = wav_paths[mesh.rank::mesh.data]
             sampler = SegmentSampler(wav_paths, cfg.audio.sampling_rate,
                                      self.segment_samples, seed=sampler_seed)
-        ckpt = CheckpointManager(exp_path, keep=vc.keep_checkpoints)
-        writer = MetricsWriter(exp_path)
         avg = EpochAverager()
         timer = StepTimer(self.device)
         total = n_steps if n_steps is not None else vc.n_steps
@@ -384,13 +404,16 @@ class VocoderTrainer:
             avg.update(self.train_step(raw))
             timer.tick()
             if (step + 1) % vc.log_every_steps == 0 or step + 1 == total:
-                writer.scalars(avg.means(), step + 1, prefix="train/")
-                st = timer.mean_step_time()
-                if st:
-                    writer.scalar("train/step_time_s", st, step + 1)
+                if writer is not None:
+                    writer.scalars(avg.means(), step + 1, prefix="train/")
+                    st = timer.mean_step_time()
+                    if st:
+                        writer.scalar("train/step_time_s", st, step + 1)
                 avg = EpochAverager()
-            if (step + 1) % vc.checkpoint_every_steps == 0 or step + 1 == total:
+            if ckpt is not None and ((step + 1) % vc.checkpoint_every_steps == 0
+                                     or step + 1 == total):
                 ckpt.save(self.state)
-        self.export(exp_path)
-        writer.close()
+        if writer is not None:
+            self.export(exp_path)
+            writer.close()
         return exp_path
