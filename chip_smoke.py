@@ -100,6 +100,23 @@ a non-zero exit:
               bucketize over the mesh writing the unsharded bank; (d)
               train-rank through torch.distributed.run --nproc-per-node 1
               (NCCL) leaving one experiment directory
+23. tensor_parallel  emotts_torch/parallel/tp.py on the one card: (a) two
+              processes of this script over gloo as a 1 x 2 grid
+              (mesh.model_parallel=2: 1 head of 192 and 768 FFN channels a
+              rank), 3 fp32 steps of the rank trainer (largest bucket) and of
+              the FS2 trainer (bucket 1024), each against one process's step
+              from the same state on the same batch (losses within 1e-5,
+              step-1 gradients within 1e-4 of each one's largest entry,
+              FastSpeech2's within 5e-2 with its flipped ReLU gates counted),
+              the replicated parameters bit-identical across the ranks; per
+              rank the step walls, a profiled step, the attention launches
+              and the f/g all-reduces and their bytes; (b) the bf16 rank and
+              FS2 steps with and without remat (FFTStack(remat=True)): under
+              deterministic algorithms losses and gradients bit-identical
+              (within 1e-6), generator states equal; in the default mode
+              beside it the spread of two plain steps from one state; wall,
+              device ms, launches and peak memory of each.  Phase 3
+              holds the attention kernels at the grid's H = 1 too.
 
 The last line is {"ok": true, "device": {...}}; before it stand the card line
 and one {"kernels": [...]} line.  Without a GPU the script exits non-zero and
@@ -107,6 +124,7 @@ prints no result.
 """
 
 import base64
+import contextlib
 import copy
 import glob
 import inspect
@@ -377,10 +395,7 @@ def check_attention_dropout(gen, dev):
 
 def check_attention_bwd(gen, dev):
     """The backward kernels against the plain backward, rate 0 and 0.1."""
-    from emotts_torch.ops import attention as A
-
     cases = []
-    h = 2
     # bf16 over 10 calls: over fewer, the host time of the first call shows
     # in the wall time of a kernel that takes half a millisecond
     for dtype, b, t, iters, d in ((torch.bfloat16, 16, 512, 10, 192),
@@ -399,67 +414,139 @@ def check_attention_bwd(gen, dev):
                                   (torch.bfloat16, 8, 250, 10, 256),
                                   (torch.float32, 8, 250, 5, 64),
                                   (torch.float32, 8, 250, 5, 256)):
-        q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t, d=d)
-        dout = torch.randn(b, t, h, d, generator=gen).to(dev, dtype)
-        size = q.element_size()
+        cases += _bwd_cases(gen, dev, dtype, b, t, iters, d)
+    return cases
+
+
+def _bwd_cases(gen, dev, dtype, b, t, iters, d, h=2, first_head=0):
+    """The backward kernels at one shape, rate 0 and 0.1, against the plain
+    backward; ``first_head``: the seeds offset to that head, as a
+    tensor-parallel rank passes them (``parallel.tp.offset_seeds``)."""
+    from emotts_torch.ops import attention as A
+    from emotts_torch.parallel.tp import offset_seeds
+
+    cases = []
+    q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t, h=h, d=d)
+    seeds = offset_seeds(seeds, first_head)
+    dout = torch.randn(b, t, h, d, generator=gen).to(dev, dtype)
+    size = q.element_size()
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
+    # 4 reads (q, k, v, dO) + 3 writes, the row statistics the design
+    # reads, the bias and the seeds
+    nbytes = (7 * b * t * h * d * size + 2 * b * h * t * 4 + b * t * 4 + b * 4)
+    bound_ms, by = bound(10 * b * h * t * t * d, peak, nbytes)
+    for rate in (0.0, DROPOUT_RATE):
+        _, stats = A.attention_forward(q, k, v, bias, seeds, rate,
+                                       want_stats=True)
+        if stats.shape != (2, b, h, t):
+            raise AssertionError(f"row statistics {tuple(stats.shape)} at H = {h}")
+        got = A.attention_backward(q, k, v, bias, seeds, stats, dout, rate)
+        torch.cuda.synchronize()
+        want = A.fused_attention_bwd_plain(q, k, v, bias, dout, seeds, rate)
+        errs = [compare(g, w, **TOL[dtype]) for g, w in zip(got, want)]
+        again = A.attention_backward(q, k, v, bias, seeds, stats, dout, rate)
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            raise AssertionError("a repeated backward gives other bits")
+        del want, again
+        ms = time_ms(lambda: A.attention_backward(
+            q, k, v, bias, seeds, stats, dout, rate), iters)
+        dev_ms = device_ms(lambda: A.attention_backward(
+            q, k, v, bias, seeds, stats, dout, rate))
+        plain_ms = time_ms(lambda: A.fused_attention_bwd_plain(
+            q, k, v, bias, dout, seeds, rate), iters)
+        library_ms = library_device_ms = None
+        if rate == 0.0:
+            # the library's backward alone: gradients of one retained
+            # forward, taken again and again
+            qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            mask = bias[:, None, None, :].to(dtype)
+            gh = dout.transpose(1, 2)
+            sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+            def sdpa_bwd():
+                torch.autograd.grad(sdpa_out, (qh, kh, vh), gh, retain_graph=True)
+
+            library_ms = time_ms(sdpa_bwd, iters)
+            library_device_ms = device_ms(sdpa_bwd)
+            del sdpa_out, qh, kh, vh
+        # the design takes nine T x T x D products where the algorithm
+        # has five (18 against 10 B*H*T^2*D operations), each as three in
+        # fp32
+        design = _attention_design(dtype, 18 * b * h * t * t * d, dev_ms)
+        cases.append(dict(
+            dtype=str(dtype).split(".")[1], shape=[b, t, h, d], rate=rate,
+            max_abs_err=max(e[0] for e in errs),
+            max_rel_err=max(e[1] for e in errs), tolerance=TOL[dtype],
+            repeat_equal_bits=True, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_device_ms=library_device_ms,
+            bound_ms=bound_ms, bound_by=by,
+            operations_algorithm=10 * b * h * t * t * d,
+            products_as_designed=design["operations"], split=design["split"],
+            operations_as_designed=design["operations_as_designed"],
+            tensor_tflops=design["tensor_tflops"],
+            **({"first_head": first_head} if first_head else {}),
+        ))
+        del stats, got
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    return cases
+
+
+# a tensor-parallel rank's attention: 1 of Config()'s 2 heads of 192 at
+# mesh.model_parallel=2, the seeds offset to head 1 (the second rank)
+TP_ATTENTION_FWD = ((torch.bfloat16, 60, 1024, 10), (torch.float32, 8, 1024, 3))
+TP_ATTENTION_BWD = ((torch.bfloat16, 16, 1024, 10), (torch.float32, 8, 512, 3))
+
+
+def check_attention_tp(gen, dev):
+    """The attention kernels at a tensor-parallel rank's shape (H = 1), rate
+    0 and 0.1 with the seeds offset to the rank's first head, each against
+    its plain version at the tolerances above; SDPA timed at the same shape
+    (rate 0).  Returns (forward cases, backward cases)."""
+    from emotts_torch.ops import attention as A
+    from emotts_torch.parallel.tp import offset_seeds
+
+    fwd, h, d = [], 1, 192
+    for dtype, b, t, iters in TP_ATTENTION_FWD:
+        q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t, h=h, d=d)
+        seeds = offset_seeds(seeds, 1)
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
-        # 4 reads (q, k, v, dO) + 3 writes, the row statistics the design
-        # reads, the bias and the seeds
-        nbytes = (7 * b * t * h * d * size + 2 * b * h * t * 4 + b * t * 4 + b * 4)
-        bound_ms, by = bound(10 * b * h * t * t * d, peak, nbytes)
+        ops = 4 * b * h * t * t * d
+        bound_ms, by = bound(ops, peak,
+                             4 * b * t * h * d * q.element_size() + b * t * 4 + b * 4)
         for rate in (0.0, DROPOUT_RATE):
-            _, stats = A.attention_forward(q, k, v, bias, seeds, rate,
-                                             want_stats=True)
-            got = A.attention_backward(q, k, v, bias, seeds, stats, dout, rate)
+            s = seeds if rate else None
+            got = A.fused_attention(q, k, v, bias, s, rate)
             torch.cuda.synchronize()
-            want = A.fused_attention_bwd_plain(q, k, v, bias, dout, seeds, rate)
-            errs = [compare(g, w, **TOL[dtype]) for g, w in zip(got, want)]
-            again = A.attention_backward(q, k, v, bias, seeds, stats, dout, rate)
-            if not all(torch.equal(a, g) for a, g in zip(again, got)):
-                raise AssertionError("a repeated backward gives other bits")
-            del want, again
-            ms = time_ms(lambda: A.attention_backward(
-                q, k, v, bias, seeds, stats, dout, rate), iters)
-            dev_ms = device_ms(lambda: A.attention_backward(
-                q, k, v, bias, seeds, stats, dout, rate))
-            plain_ms = time_ms(lambda: A.fused_attention_bwd_plain(
-                q, k, v, bias, dout, seeds, rate), iters)
+            err, rel = compare(got, A.fused_attention_plain(q, k, v, bias, s, rate),
+                               **TOL[dtype])
+            ms = time_ms(lambda: A.fused_attention(q, k, v, bias, s, rate), iters)
+            dev_ms = device_ms(lambda: A.fused_attention(q, k, v, bias, s, rate))
+            plain_ms = time_ms(lambda: A.fused_attention_plain(q, k, v, bias, s, rate),
+                               iters)
             library_ms = library_device_ms = None
             if rate == 0.0:
-                # the library's backward alone: gradients of one retained
-                # forward, taken again and again
-                qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
-                              for x in (q, k, v))
+                qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
                 mask = bias[:, None, None, :].to(dtype)
-                gh = dout.transpose(1, 2)
-                sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
-                def sdpa_bwd():
-                    torch.autograd.grad(sdpa_out, (qh, kh, vh), gh, retain_graph=True)
+                def sdpa():
+                    return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
-                library_ms = time_ms(sdpa_bwd, iters)
-                library_device_ms = device_ms(sdpa_bwd)
-                del sdpa_out, qh, kh, vh
-            # the design takes nine T x T x D products where the algorithm
-            # has five (18 against 10 B*H*T^2*D operations), each as three in
-            # fp32
-            design = _attention_design(dtype, 18 * b * h * t * t * d, dev_ms)
-            cases.append(dict(
+                library_ms, library_device_ms = time_ms(sdpa, iters), device_ms(sdpa)
+            fwd.append(dict(
                 dtype=str(dtype).split(".")[1], shape=[b, t, h, d], rate=rate,
-                max_abs_err=max(e[0] for e in errs),
-                max_rel_err=max(e[1] for e in errs), tolerance=TOL[dtype],
-                repeat_equal_bits=True, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=library_ms, library_device_ms=library_device_ms,
-                bound_ms=bound_ms, bound_by=by,
-                operations_algorithm=10 * b * h * t * t * d,
-                products_as_designed=design["operations"], split=design["split"],
-                operations_as_designed=design["operations_as_designed"],
-                tensor_tflops=design["tensor_tflops"],
-            ))
-            del stats, got
-        del q, k, v, dout
+                first_head=1, max_abs_err=err, max_rel_err=rel, tolerance=TOL[dtype],
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_device_ms, bound_ms=bound_ms, bound_by=by,
+                **_attention_design(dtype, ops, dev_ms)))
+            del got
+        del q, k, v
         torch.cuda.empty_cache()
-    return cases
+    bwd = []
+    for dtype, b, t, iters in TP_ATTENTION_BWD:
+        bwd += _bwd_cases(gen, dev, dtype, b, t, iters, d, h=h, first_head=1)
+    return fwd, bwd
 
 
 def _block_weights(gen, dev, c, k, n_d=3):
@@ -2928,14 +3015,6 @@ DP_GRAD_RTOL = 1e-4  # of each gradient's largest entry
 DP_GRAD_RTOL_RELU = 5e-2
 
 
-def seeded_build(build):
-    """``build()`` with the global generator seeded: the seeded init redraws
-    the matrices, the constructed vectors (``nn.Linear`` biases) come from
-    the global generator, so that two builds start from the same weights."""
-    torch.manual_seed(SEED)
-    return build()
-
-
 def digest(model):
     """sha1 of a model's state (parameters and buffers), for bit-identity."""
     import hashlib
@@ -2959,22 +3038,22 @@ def wall_ms(trainer, batch, steps=2):
 
 def step_reading(trainer, batch):
     """One train step under the profiler: device ms, kernel launches, the
-    NCCL kernels among them, and the memory the step allocates above what
-    was allocated before it."""
+    NCCL kernels among them, the memory the step allocates above what was
+    allocated before it, and the step's metrics."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(batch)
+        metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.key.startswith("Optimizer.")]
     return dict(device_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
                 launches=sum(e.count for e in kernels),
                 nccl_launches=sum(e.count for e in kernels if "nccl" in e.key.lower()),
-                step_peak_bytes=torch.cuda.max_memory_allocated() - base)
+                step_peak_bytes=torch.cuda.max_memory_allocated() - base, metrics=metrics)
 
 
 def dp_batch(name, trainer, root):
@@ -3032,7 +3111,7 @@ def dp_nccl_phase(root, rank_exp, dev):
                 for path, mesh in (("plain", plain), ("dp", None)):
                     torch.cuda.empty_cache()
                     before = torch.cuda.memory_allocated()
-                    trainers[path] = seeded_build(lambda: build(mesh))
+                    trainers[path] = build(mesh)
                     if name not in batches:
                         batches[name] = dp_batch(name, trainers[path], root)
                     runs[path] = dict(first_step=trainers[path].train_step(batches[name]))
@@ -3073,11 +3152,13 @@ def dp_nccl_phase(root, rank_exp, dev):
 RELU_GATES = ("prenet.norms.", "predictor.conv1", "predictor.conv2", "ffn.conv1")
 
 
-def gate_recorder(model, rows, seen=None):
+def gate_recorder(model, rows, seen=None, part=0):
     """Forward hooks on the modules whose output a ReLU gates: each output's
     first ``rows`` rows are kept (``seen`` empty) or compared with the kept
     ones (``seen`` given: the count of entries on the other side of zero
-    goes into ``seen['flips']``).  Returns the hooks' handles."""
+    goes into ``seen['flips']``).  Where ``model``'s layer is a
+    tensor-parallel shard, its output is compared with slice ``part`` of the
+    kept channels.  Returns the hooks' handles."""
     kept = {} if seen is None else seen
 
     def hook(name):
@@ -3086,8 +3167,11 @@ def gate_recorder(model, rows, seen=None):
             if seen is None:
                 kept[name] = out
             else:
-                kept["flips"] = kept.get("flips", 0) + int(
-                    ((out > 0) != (kept[name] > 0)).sum())
+                ref = kept[name]
+                n = out.shape[-1]
+                if ref.shape[-1] != n:
+                    ref = ref[..., part * n:(part + 1) * n]
+                kept["flips"] = kept.get("flips", 0) + int(((out > 0) != (ref > 0)).sum())
         return record
 
     handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()
@@ -3122,10 +3206,10 @@ def dp_gloo_worker(argv):
                 ("fs2", "total_loss", DP_GRAD_RTOL_RELU, lambda mesh: fs2_trainer(
                     fs2_config(root, "float32"), rank_exp, dev, mesh)))
         for name, key, grad_rtol, build in jobs:
-            trainer = seeded_build(lambda: build(None))
+            trainer = build(None)
             local = iter(trainer._loader("train", shuffle=True).epoch(0))
             if rank == 0:
-                one = seeded_build(lambda: build(Mesh(1, (dev,))))
+                one = build(Mesh(1, (dev,)))
                 whole = iter(one._loader("train", shuffle=True).epoch(0))
             losses, one_losses, digests, step_ms = [], [], [], []
             gates = None
@@ -3357,6 +3441,322 @@ def dp_phase(root, rank_exp, weights, dev):
         launcher=launched, launches=launches, fp32_launches=fp32)
 
 
+TP_STEPS = 3  # fp32 steps of each trainer on the 1 x 2 grid
+REMAT_GRAD_RTOL = 1e-6  # of each gradient's largest entry, remat against none
+
+
+def _replicated_digests(model):
+    """sha1 of each entry of a model's state that no rank shards."""
+    import hashlib
+
+    from emotts_torch.parallel.tp import shard_dim
+
+    return {n: hashlib.sha1(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                            .numpy().tobytes()).hexdigest()
+            for n, t in model.state_dict().items() if shard_dim(n) is None}
+
+
+def _tp_jobs(root, rank_exp, dev):
+    """(name, loss key, gradient tolerance, build(mesh_model, mesh), FFT
+    blocks) of phase 23's trainers at full width, fp32."""
+    from emotts_torch.train.rank_trainer import RankTrainer
+
+    def config(make, model):
+        cfg = make(root, "float32")
+        cfg.mesh.model_parallel = model
+        return cfg
+
+    rank_blocks = rank_config(root).rank_model.n_encoder_layers
+    f2 = fs2_config(root).fastspeech2
+    return (("rank", "loss", DP_GRAD_RTOL, rank_blocks,
+             lambda model, mesh: RankTrainer(config(rank_config, model), device=dev, mesh=mesh)),
+            ("fs2", "total_loss", DP_GRAD_RTOL_RELU, f2.enc_num_layers + f2.dec_num_layers,
+             lambda model, mesh: fs2_trainer(config(fs2_config, model), rank_exp, dev, mesh)))
+
+
+def tp_gloo_worker(argv):
+    """(a) One of two processes on the one card over ``gloo`` forming a 1 x 2
+    grid (``mesh.model_parallel=2``): each holds 1 of the 2 heads of 192 and
+    768 of the 1536 FFN channels of every FFT block.  TP_STEPS fp32 steps of
+    the rank trainer (its largest frame bucket) and of the FS2 trainer
+    (bucket 1024).  Before each step rank 0 loads the grid's full state
+    (gathered over the model group) into a trainer with no process group and
+    takes the same step on the same batch: losses within DP_TWO_RTOL, step-1
+    gradients within DP_GRAD_RTOL of each one's largest entry
+    (FastSpeech2's within DP_GRAD_RTOL_RELU, its flipped ReLU gates
+    counted), the replicated parameters and buffers bit-identical across
+    the ranks after every step (their gradients are averaged over the
+    model group: the FS2 step's backward adds with atomics on the card, so
+    two ranks' gradients differ in their last bits).  Each rank writes its report to ``out.<rank>``: step
+    walls, the last step's profiler reading, and per step the attention
+    launches and the model axis's all-reduces and the bytes they reduce."""
+    import torch.distributed as dist
+
+    from emotts_torch.ops import attention
+    from emotts_torch.parallel import tp
+    from emotts_torch.parallel.mesh import Mesh
+
+    store, rank, root, rank_exp, out_path, dev = argv
+    rank, dev = int(rank), torch.device(dev)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=store, world_size=2, rank=rank)
+    report = {}
+    try:
+        for name, key, grad_rtol, blocks, build in _tp_jobs(root, rank_exp, dev):
+            trainer = build(2, None)
+            mesh = trainer.mesh
+            if (mesh.data, mesh.model, mesh.model_rank) != (1, 2, rank):
+                raise AssertionError(f"(a) {name}: grid {mesh}")
+            heads = trainer.model.modules()
+            local_heads = {m.n_heads // m.model_axis.size for m in heads
+                           if getattr(m, "model_axis", None) is not None and hasattr(m, "n_heads")}
+            batch = dp_batch(name, trainer, root)
+            rows = len(batch["row_valid"])
+            one = build(1, Mesh(1, (dev,))) if rank == 0 else None
+            res = dict(rows=rows, local_heads=sorted(local_heads), step_ms=[], losses=[],
+                       one_losses=[], replicated_bit_identical=[], launches=[],
+                       all_reduces=[], all_reduce_bytes=[])
+            gates = None
+            for i in range(TP_STEPS):
+                full = trainer.state.state_dict()  # gathered: every rank calls it
+                if rank == 0:
+                    one.state.load_state_dict(copy.deepcopy(full))
+                    if i == 0 and name == "fs2":
+                        gates, handles = gate_recorder(one.model, rows)
+                    res["one_losses"].append(one.train_step(batch)[key])
+                    if i == 0:
+                        ref = {n: p.grad.detach().clone() for n, p in one.model.named_parameters()}
+                        if gates is not None:
+                            for h in handles:
+                                h.remove()
+                del full
+                if gates is not None and i == 0:
+                    _, handles = gate_recorder(trainer.model, rows, gates, part=rank)
+                zero_counts(attention)
+                tp.all_reduce_count = tp.all_reduce_bytes = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == TP_STEPS - 1:  # the last step under the profiler
+                    reading = step_reading(trainer, batch)
+                    loss = reading.pop("metrics")[key]
+                else:
+                    loss = trainer.train_step(batch)[key]
+                torch.cuda.synchronize()
+                res["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                res["losses"].append(loss)
+                res["launches"].append(dict(fused_attention=attention.launch_count,
+                                            fused_attention_bwd=attention.bwd_launch_count))
+                res["all_reduces"].append(tp.all_reduce_count)
+                res["all_reduce_bytes"].append(tp.all_reduce_bytes)
+                if gates is not None and i == 0:
+                    for h in handles:
+                        h.remove()
+                everyone = [None, None]
+                dist.all_gather_object(everyone, _replicated_digests(trainer.model))
+                differ = sorted(n for n in everyone[0] if everyone[0][n] != everyone[1][n])
+                res["replicated_bit_identical"].append(not differ)
+                if differ:
+                    raise AssertionError(f"(a) {name} step {i + 1}: replicated entries "
+                                         f"differ across the ranks: {differ[:8]}")
+                if i == 0:
+                    grads = tp.gather_state_dict(
+                        {n: p.grad.detach() for n, p in trainer.model.named_parameters()}, mesh)
+            res["reading"] = reading
+            res["expected_all_reduces"] = 4 * blocks  # f and g twice a block
+            if res["all_reduces"] != [4 * blocks] * TP_STEPS:
+                raise AssertionError(f"(a) {name}: all-reduces {res['all_reduces']}")
+            if rank == 0:
+                ratios = _gradient_ratios(grads, ref)
+                worst = sorted(ratios, key=ratios.get, reverse=True)
+                rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], res["one_losses"]))
+                res.update(loss_rel_difference=rel, loss_rtol=DP_TWO_RTOL,
+                           worst_gradient_difference=ratios[worst[0]],
+                           worst_gradients=[[n, ratios[n]] for n in worst[:8]],
+                           parameters=len(ratios),
+                           parameters_over_strict_rtol=sum(
+                               r > DP_GRAD_RTOL for r in ratios.values()),
+                           gradient_rtol_of_largest_entry=grad_rtol,
+                           relu_gate_flips=None if gates is None else gates.get("flips", 0))
+                if rel > DP_TWO_RTOL or ratios[worst[0]] > grad_rtol:
+                    raise AssertionError(f"(a) {name}: {res}")
+            report[name] = res
+            del trainer, one, grads, gates
+            torch.cuda.empty_cache()
+            dist.barrier()
+        with open(f"{out_path}.{rank}", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_gloo_phase(root, rank_exp, dev):
+    """(a) Two processes of this script on the one card over ``gloo`` (NCCL
+    takes no two ranks on one device); their reports, by rank."""
+    store = f"file://{root}/tp_store_{time.time_ns()}"  # a new file store
+    out = os.path.join(root, "tp_gloo.json")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker", store, str(rank),
+         root, rank_exp, out, str(dev)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"(a) rank {rank} exited {p.returncode}:\n{logs[rank][-4000:]}")
+    reports = []
+    for rank in range(2):
+        with open(f"{out}.{rank}") as f:
+            reports.append(json.load(f))
+    return reports
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms`` and cuDNN's deterministic
+    algorithms on inside, restored after: the FS2 step's backward on the
+    card otherwise adds with atomics (the length regulator's ``gather``),
+    so two steps from one state differ in their last bits."""
+    import warnings
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings():
+            # warn_only's notes (cuBLAS's workspace setting): the bits are checked
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before[2:]
+
+
+def _step_record(trainer, batch, key):
+    loss = trainer.train_step(batch)[key]
+    return dict(loss=loss,
+                grads={n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()},
+                generators={k: g.get_state() for k, g in trainer.state.generators.items()})
+
+
+def _against(got, want):
+    """remat (or a second plain step) against the plain step: losses and
+    generator states bit for bit, the gradients' worst ratio and how many
+    differ at all."""
+    ratios = _gradient_ratios(got["grads"], want["grads"])
+    return dict(losses_bit_identical=got["loss"] == want["loss"],
+                generators_equal=same_bits(got["generators"], want["generators"]),
+                gradients_bit_identical=same_bits(got["grads"], want["grads"]),
+                gradients_differing=sum(r > 0 for r in ratios.values()),
+                parameters=len(ratios), worst_gradient_difference=max(ratios.values()))
+
+
+def remat_phase(root, rank_exp, dev):
+    """(b) The rank step (its largest frame bucket, 16 rows) and the FS2 step
+    (bucket 1024) in bf16 with and without ``remat``, in this process, from
+    the same seed on the same batch.  Held under deterministic algorithms:
+    losses and gradients bit-identical (gradients within REMAT_GRAD_RTOL of
+    each one's largest entry), generator states equal.  Read in the default
+    mode beside it: a second plain step from the same state against the
+    first (the card's own spread) and remat against plain.  Then each one's
+    wall over two steps in turns (plain, remat, remat, plain) and one
+    profiled step: device ms, launches, the step's peak memory above what
+    the trainer holds, and that peak up to the optimizer's step."""
+    from emotts_torch.train.rank_trainer import RankTrainer
+
+    out = {}
+    for name, key, make in (
+            ("rank", "loss", lambda cfg: RankTrainer(cfg, device=dev)),
+            ("fs2", "total_loss", lambda cfg: fs2_trainer(cfg, rank_exp, dev))):
+        trainers = {}
+        for path in ("plain", "plain_again", "remat"):
+            cfg = (rank_config if name == "rank" else fs2_config)(root, "bfloat16")
+            cfg.rank_model.remat = cfg.fastspeech2.remat = path == "remat"
+            trainers[path] = make(cfg)
+        start = copy.deepcopy(trainers["plain"].state.state_dict())
+        batch = dp_batch(name, trainers["plain"], root)
+        default = {path: _step_record(t, batch, key) for path, t in trainers.items()}
+        for t in trainers.values():
+            t.state.load_state_dict(copy.deepcopy(start))
+        with deterministic_algorithms():
+            held = {path: _step_record(trainers[path], batch, key)
+                    for path in ("plain", "remat")}
+        res = dict(rows=len(batch["row_valid"]),
+                   frames=int(batch["mel" if name == "fs2" else "emo_x"].shape[1]),
+                   loss=held["plain"]["loss"],
+                   deterministic=_against(held["remat"], held["plain"]),
+                   gradient_rtol_of_largest_entry=REMAT_GRAD_RTOL,
+                   default_plain_again=_against(default["plain_again"], default["plain"]),
+                   default_remat=_against(default["remat"], default["plain"]))
+        d = res["deterministic"]
+        if not (d["losses_bit_identical"] and d["generators_equal"]
+                and d["worst_gradient_difference"] <= REMAT_GRAD_RTOL
+                and res["default_remat"]["losses_bit_identical"]
+                and res["default_remat"]["generators_equal"]):
+            raise AssertionError(f"(b) {name}: {res}")
+        del default, held, start, trainers["plain_again"]
+        walls = {"plain": [], "remat": []}
+        for path in ("plain", "remat", "remat", "plain"):
+            walls[path].append(wall_ms(trainers[path], batch))
+        for path in ("plain", "remat"):
+            # the peak up to the optimizer's step: forward and backward alone
+            # (AdamW's fp32 temporaries, four of the parameters' size, come after)
+            peaks = []
+            base = torch.cuda.memory_allocated()
+            hook = trainers[path].state.optimizer.register_step_pre_hook(
+                lambda *_: peaks.append(torch.cuda.max_memory_allocated() - base))
+            try:
+                reading = step_reading(trainers[path], batch)
+            finally:
+                hook.remove()
+            reading.pop("metrics")
+            res[path] = dict(reading, wall_ms=sum(walls[path]) / 2,
+                             backward_peak_bytes=peaks[0])
+        for what in ("step_peak_bytes", "backward_peak_bytes"):
+            res[f"{what}_saved"] = res["plain"][what] - res["remat"][what]
+        out[name] = res
+        del trainers
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(root, rank_exp, dev):
+    """Phase 23: (a) the two-process grid and (b) remat; the kernels'
+    launches of the grid's steps (both ranks) and of the remat steps,
+    counted from 0 around each; returns them and the phase's report."""
+    from emotts_torch.ops import attention
+
+    t0 = time.perf_counter()
+    grid = tp_gloo_phase(root, rank_exp, dev)
+    t1 = time.perf_counter()
+    zero_counts(attention)
+    remat = remat_phase(root, rank_exp, dev)
+    launches = dict(fused_attention=attention.launch_count,
+                    fused_attention_bwd=attention.bwd_launch_count)
+    for report in grid:
+        for job in report.values():
+            for step in job["launches"]:
+                for k, n in step.items():
+                    launches[k] += n
+    if min(launches.values()) == 0:
+        raise AssertionError(f"tensor_parallel: a kernel was not launched: {launches}")
+    return launches, dict(
+        seconds=time.perf_counter() - t0, part_seconds=dict(a=t1 - t0, b=time.perf_counter() - t1),
+        grid_two_processes=grid, remat=remat, launches=launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
@@ -3390,10 +3790,13 @@ def main():
     gen = torch.Generator().manual_seed(SEED)
     frames, chunk_rows = 1024, 16  # max_mel_len frames, rows per vocode chunk
     dropout_cases, mask = check_attention_dropout(gen, dev)
+    tp_fwd, tp_bwd = check_attention_tp(gen, dev)
     cases = {
         "fused_attention": check_attention(gen, dev),
         "fused_attention_dropout": dropout_cases,
         "fused_attention_bwd": check_attention_bwd(gen, dev),
+        "fused_attention_tp_rank": tp_fwd,
+        "fused_attention_bwd_tp_rank": tp_bwd,
         "fused_mrf_stage": check_mrf(gen, dev, frames, chunk_rows),
         "fused_resblock1": check_resblock(gen, dev, frames, chunk_rows),
     }
@@ -3523,6 +3926,11 @@ def main():
         dp_launches, dp_report = dp_phase(root, exp, weights, dev)
         emit("data_parallel", card=card, **dp_report)
         fp32_by_path["data_parallel"] = dp_report["fp32_launches"]
+        torch.cuda.empty_cache()
+
+        # -- 23. tensor parallelism and remat ---------------------------------
+        tp_launches, tp_report = tp_phase(root, exp, dev)
+        emit("tensor_parallel", card=card, **tp_report)
 
     # -- summary ---------------------------------------------------------------
     # a kernel's launches over the counted paths
@@ -3530,7 +3938,8 @@ def main():
     by_path = dict(serving=serve_launches, training=train_launches,
                    fs2_training=fs2_launches, streaming=stream_launches,
                    evaluation=eval_launches, vocoder_training=voc_launches,
-                   cli=cli_launches, data_parallel=dp_launches)
+                   cli=cli_launches, data_parallel=dp_launches,
+                   tensor_parallel=tp_launches)
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in ("fused_attention", "fused_attention_bwd",
                              "fused_mrf_stage", "fused_resblock1")}
@@ -3555,6 +3964,8 @@ def main():
         "fused_mrf_stage": ("emotts_torch/csrc/mrf.cu", "emotts/ops/mrf.py:245"),
         "fused_resblock1": ("emotts_torch/csrc/resblock.cu", "emotts/ops/resblock.py:201"),
     }
+    # the tensor-parallel rank's shape (H = 1), bf16 at rate 0.1
+    tp_cases = {"fused_attention": tp_fwd, "fused_attention_bwd": tp_bwd}
     kernels = []
     for name, (source, replaces) in meta.items():
         head = next(c for c in cases[name] if headline[name](c))
@@ -3564,7 +3975,8 @@ def main():
             launches_by_path={path: counts.get(name, 0)
                               for path, counts in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cases[name]
-                            + (dropout_cases if name == "fused_attention" else [])),
+                            + (dropout_cases if name == "fused_attention" else [])
+                            + tp_cases.get(name, [])),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"],
             # the library call is timed without dropout: take that case's time
@@ -3574,6 +3986,15 @@ def main():
             at=dict(dtype=head["dtype"], shape=head["shape"]),
         ))
         with_ratios(kernels[-1])
+        if name in tp_cases:
+            c = next(c for c in tp_cases[name] if c["dtype"] == "bfloat16" and c["rate"] > 0)
+            lib = next(x["library_ms"] for x in tp_cases[name]
+                       if x["shape"] == c["shape"] and x["dtype"] == c["dtype"]
+                       and x["library_ms"] is not None)
+            kernels[-1]["tp_rank"] = dict(
+                {key: c[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                         "bound_by", "max_abs_err")},
+                library_ms=lib, at=dict(shape=c["shape"], rate=c["rate"]))
         if name in fp32_headline:
             # the fp32 instance's own case and launches, beside the headline's
             c = next(c for c in cases[name] if fp32_headline[name](c))
@@ -3596,4 +4017,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:  # phase 22 (b): one of its processes
         sys.exit(dp_gloo_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-worker"]:  # phase 23 (a): one of its processes
+        sys.exit(tp_gloo_worker(sys.argv[2:]))
     sys.exit(main())

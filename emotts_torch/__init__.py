@@ -31,10 +31,11 @@ bucketization, preprocessing and evaluation:
 * ``emotts_torch.train``  — AdamW with stored-dtype moments, train state,
   checkpoints, metrics, ``RankTrainer``, ``FS2Trainer``, ``VocoderTrainer``.
 * ``emotts_torch.infer``  — ``Synthesizer``, the HTTP server, ``bucketize``.
-* ``emotts_torch.parallel`` — the data axis on ``torch.distributed``:
-  ``make_mesh``, the loader's process rows, draws at the global batch
-  shape, global sums, DDP and the gradient all-reduce (tensor parallelism
-  is refused: not ported yet).
+* ``emotts_torch.parallel`` — the (data, model) grid on
+  ``torch.distributed``: ``make_mesh``, the loader's process rows, draws at
+  the global batch shape, global sums, DDP and the gradient all-reduce on
+  the data axis; the FFT blocks' tensor-parallel shards, Megatron's ``f``
+  and ``g`` and full-tensor checkpoints on the model axis.
 """
 
 __version__ = "0.1.0"

@@ -19,8 +19,16 @@ switches dropout on, and every random draw comes from the ``generator`` the
 caller passes (the trainer owns and checkpoints it), never from the global
 one; under data parallelism the trainer wraps it in a
 ``parallel.mesh.RowDraws``, and every draw is this rank's rows of the draw a
-one-process run on the global batch makes.  Rematerialisation (the reference's ``remat``) is not ported: it changes
-memory, not numbers.
+one-process run on the global batch makes.
+
+Under tensor parallelism (``parallel.tp.shard_module_``) an attention holds
+``n_heads / M`` heads and a conv-FFN ``ffn_dim / M`` channels of ``conv1``
+with the matching input channels of ``conv2``; each pair is bracketed by
+the model axis's ``f`` and ``g``, and every dropout mask inside it is this
+rank's slice of the mask at the full width.  ``FFTStack(remat=True)``
+recomputes each block in the backward (``torch.utils.checkpoint``),
+replaying the block's draws from the caller's generator: it changes memory,
+not numbers.
 """
 
 from __future__ import annotations
@@ -32,21 +40,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from emotts_torch.ops.attention import fused_attention
 from emotts_torch.parallel.mesh import base_generator, draw_rows, row_index
+from emotts_torch.parallel.tp import (ModelAxis, copy_to_model, offset_seeds,
+                                      reduce_from_model)
 
 
-def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator,
+            split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout with an explicit generator (on the device of ``x``):
     an entry is kept with probability 1 - rate and scaled by 1 / (1 - rate).
     Under data parallelism ``generator`` is a ``RowDraws``: the mask is this
-    rank's rows of the mask of the global batch."""
+    rank's rows of the mask of the global batch; ``split`` (a model axis's
+    ``ModelAxis.split``): its slice of the mask at the full width."""
     if rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs the caller's torch.Generator")
-    keep = draw_rows(torch.rand, x.shape, generator, device=x.device) >= rate
+    keep = draw_rows(torch.rand, x.shape, generator, split=split,
+                     device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -116,9 +130,10 @@ class CastConv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
         y = F.conv1d(
-            x.transpose(1, 2), self.weight.to(x.dtype), self.bias.to(x.dtype),
+            x.transpose(1, 2), self.weight.to(x.dtype),
+            self.bias.to(x.dtype) if bias else None,
             padding=(self.kernel_size - 1) // 2,
         )
         return y.transpose(1, 2)
@@ -143,7 +158,15 @@ class MultiHeadSelfAttention(nn.Module):
     ``deterministic=False`` the probabilities are dropped out at ``dropout``:
     inside the kernel on the fused path (Philox streams seeded per example
     from the generator), by :func:`dropout` on the unfused one — two streams,
-    one distribution."""
+    one distribution.
+
+    With a ``model_axis`` (set by ``parallel.tp.shard_module_``) it holds
+    heads ``rank·H/M …`` of the layer: the fused kernel's seeds are offset to
+    them and the unfused mask is their slice of the full-width mask, and
+    the ``out`` projection's partial sums are added over the model group
+    before its bias."""
+
+    model_axis: Optional[ModelAxis] = None
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype = torch.float32,
                  fused: bool = False, dropout: float = 0.0):
@@ -157,13 +180,21 @@ class MultiHeadSelfAttention(nn.Module):
         self.value = CastLinear(d_model, d_model)
         self.out = CastLinear(d_model, d_model)
 
+    @property
+    def tp_units(self) -> Tuple[str, int]:
+        return "n_heads", self.n_heads
+
     def forward(self, x: torch.Tensor, key_valid: Optional[torch.Tensor],
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, _ = x.shape
         rate = 0.0 if deterministic else self.dropout
+        axis = self.model_axis
         h, d = self.n_heads, self.d_model // self.n_heads
         x = x.to(self.dtype)
+        if axis is not None:
+            h //= axis.size
+            x = copy_to_model(x, axis)
         q = self.query(x).view(b, t, h, d)
         k = self.key(x).view(b, t, h, d)
         v = self.value(x).view(b, t, h, d)
@@ -175,6 +206,8 @@ class MultiHeadSelfAttention(nn.Module):
             seeds = None
             if rate > 0.0:
                 seeds = draw_attention_seeds(b, generator, x.device)
+                if axis is not None:
+                    seeds = offset_seeds(seeds, axis.rank * h)
             out = fused_attention(q, k, v, bias, seeds, rate)
         else:
             scale = 1.0 / math.sqrt(d)
@@ -185,13 +218,23 @@ class MultiHeadSelfAttention(nn.Module):
                     key_valid[:, None, None, :], 0.0, neg
                 )
             weights = torch.softmax(logits, dim=-1).to(self.dtype)
-            weights = dropout(weights, rate, generator)
+            weights = dropout(weights, rate, generator,
+                              None if axis is None else axis.split(1))
             out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-        return self.out(out.reshape(b, t, h * d))
+        out = out.reshape(b, t, h * d)
+        if axis is None:
+            return self.out(out)
+        out = reduce_from_model(F.linear(out, self.out.weight.to(out.dtype)), axis)
+        return out + self.out.bias.to(out.dtype)
 
 
 class ConvFFN(nn.Module):
-    """Two same-padded 1-D convolutions over time with activation between."""
+    """Two same-padded 1-D convolutions over time with activation between.
+    With a ``model_axis`` it holds its rank's ``ffn_dim / M`` channels
+    (``conv1``'s outputs, ``conv2``'s inputs); ``conv2``'s partial sums are
+    added over the model group before its bias."""
+
+    model_axis: Optional[ModelAxis] = None
 
     def __init__(self, d_model: int, ffn_dim: int, kernel_sizes: Tuple[int, int],
                  activation: Callable = F.relu, dropout: float = 0.0,
@@ -204,12 +247,23 @@ class ConvFFN(nn.Module):
         # rank-model style: dropout after the activation
         self.dropout = dropout if internal_dropout else 0.0
 
+    @property
+    def tp_units(self) -> Tuple[str, int]:
+        return "ffn_dim", self.conv1.weight.shape[0]
+
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        axis = self.model_axis
+        if axis is not None:
+            x = copy_to_model(x, axis)
         y = self.activation(self.conv1(x))
         if not deterministic:
-            y = dropout(y, self.dropout, generator)
-        return self.conv2(y)
+            y = dropout(y, self.dropout, generator,
+                        None if axis is None else axis.split(2))
+        if axis is None:
+            return self.conv2(y)
+        y = reduce_from_model(self.conv2(y, bias=False), axis)
+        return y + self.conv2.bias.to(y.dtype)
 
 
 class FFTBlock(nn.Module):
@@ -250,7 +304,15 @@ class FFTBlock(nn.Module):
 
 
 class FFTStack(nn.Module):
-    """N stacked FFT blocks with optional final LayerNorm."""
+    """N stacked FFT blocks with optional final LayerNorm.
+
+    ``remat=True`` keeps no activation of a block for the backward but its
+    input, and runs the block again there (the reference's ``nn.remat``):
+    the stack's activations cost one block instead of N.  The recompute
+    replays the block's draws: the caller's generator is put back to where
+    the block's first forward found it and, after the recompute, to where
+    the recompute found it, so masks, seeds and the generator's state are
+    those of the step without remat."""
 
     def __init__(self, num_layers: int, d_model: int, n_heads: int, ffn_dim: int,
                  kernel_sizes: Tuple[int, int] = (9, 1),
@@ -258,9 +320,9 @@ class FFTStack(nn.Module):
                  final_norm: bool = False, ln_eps: float = 1e-6,
                  fused_attention: bool = False,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 ffn_internal_dropout: bool = False):
+                 ffn_internal_dropout: bool = False, remat: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.layers = nn.ModuleList([
             FFTBlock(d_model, n_heads, ffn_dim, kernel_sizes, activation,
                      normalize_before, ln_eps, fused_attention, dtype, dropout,
@@ -272,8 +334,37 @@ class FFTStack(nn.Module):
     def forward(self, x: torch.Tensor, key_valid: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, key_valid, deterministic, generator)
+            if remat:
+                x = _rematerialized(layer, x, key_valid, deterministic, generator)
+            else:
+                x = layer(x, key_valid, deterministic, generator)
         if self.final_norm is not None:
             x = self.final_norm(x).to(self.dtype)
         return x
+
+
+def _rematerialized(block: FFTBlock, x: torch.Tensor,
+                    key_valid: Optional[torch.Tensor], deterministic: bool,
+                    generator) -> torch.Tensor:
+    """``block(x, …)`` under ``torch.utils.checkpoint``, its draws replayed
+    in the recompute.  ``checkpoint`` would restore the global generators
+    only; every draw here comes from ``generator``, so their states are not
+    saved (``preserve_rng_state=False``) and ``generator``'s is."""
+    gen = base_generator(generator)
+    start = None if gen is None else gen.get_state()
+    first = [True]
+
+    def run(x):
+        if first[0] or gen is None:
+            first[0] = False
+            return block(x, key_valid, deterministic, generator)
+        end = gen.get_state()  # the recompute, in the backward
+        gen.set_state(start)
+        try:
+            return block(x, key_valid, deterministic, generator)
+        finally:
+            gen.set_state(end)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)

@@ -214,7 +214,7 @@ class FastSpeech2(nn.Module):
             c.enc_num_layers, c.enc_d_model, c.enc_num_head, c.enc_ffn_dim,
             tuple(c.ffn_kernel_sizes), normalize_before=c.normalize_before,
             final_norm=True, fused_attention=fused, dtype=dtype,
-            dropout=c.enc_dropout,
+            dropout=c.enc_dropout, remat=c.remat,
         )
         self.speaker_emb = nn.Embedding(n_speakers, c.enc_d_model)
         self.concat_proj = nn.Linear(
@@ -233,7 +233,7 @@ class FastSpeech2(nn.Module):
             c.dec_num_layers, c.dec_d_model, c.dec_num_head, c.dec_ffn_dim,
             tuple(c.ffn_kernel_sizes), normalize_before=c.normalize_before,
             final_norm=True, fused_attention=fused, dtype=dtype,
-            dropout=c.dec_dropout,
+            dropout=c.dec_dropout, remat=c.remat,
         )
         self.mel_head = nn.Linear(c.dec_d_model, c.n_mels)
         postnet_cls = (

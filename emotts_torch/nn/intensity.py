@@ -40,7 +40,7 @@ class IntensityExtractor(nn.Module):
                  n_layers: int = 6, hidden_dim: int = 384, kernel_size: int = 9,
                  ffn_mult: int = 4, dropout: float = 0.1,
                  fused_attention: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.input_proj = CastLinear(n_mels + 2, hidden_dim)
@@ -49,7 +49,7 @@ class IntensityExtractor(nn.Module):
             ffn_dim=hidden_dim * ffn_mult, kernel_sizes=(kernel_size, kernel_size),
             activation=_gelu_exact, normalize_before=False, final_norm=False,
             ln_eps=1e-5, fused_attention=fused_attention, dtype=dtype,
-            dropout=dropout, ffn_internal_dropout=True,
+            dropout=dropout, ffn_internal_dropout=True, remat=remat,
         )
         self.emotion_embedding = nn.Embedding(n_emotions, hidden_dim)
         self.classifier = CastLinear(hidden_dim, n_emotions)
@@ -76,11 +76,11 @@ class RankModel(nn.Module):
                  n_layers: int = 6, hidden_dim: int = 384, kernel_size: int = 9,
                  ffn_mult: int = 4, dropout: float = 0.1,
                  fused_attention: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.intensity_extractor = IntensityExtractor(
             n_mels, n_heads, n_emotions, n_layers, hidden_dim, kernel_size,
-            ffn_mult, dropout, fused_attention, dtype,
+            ffn_mult, dropout, fused_attention, dtype, remat,
         )
         self.projector = nn.Linear(n_emotions, 1, bias=False)  # fp32
 

@@ -11,19 +11,29 @@ from emotts_torch.parallel.mesh import (
     row_draws,
     shard_batch,
 )
-from emotts_torch.parallel.tp import refuse_model_parallel
+from emotts_torch.parallel.tp import (
+    ModelAxis,
+    gather_state_dict,
+    shard_dim,
+    shard_module_,
+    shard_state_dict,
+)
 
 __all__ = [
     "Mesh",
+    "ModelAxis",
     "RowDraws",
     "average_gradients",
     "data_axis_size",
     "draw_rows",
+    "gather_state_dict",
     "global_sum",
     "make_mesh",
-    "refuse_model_parallel",
     "replicate",
     "round_up_to_multiple",
     "row_draws",
     "shard_batch",
+    "shard_dim",
+    "shard_module_",
+    "shard_state_dict",
 ]

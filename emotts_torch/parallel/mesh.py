@@ -1,22 +1,29 @@
-"""The data axis: processes and devices, batch rows, random draws and sums.
+"""The (data, model) grid: processes and devices, batch rows, random draws
+and sums.
 
 Counterpart of ``emotts/parallel/mesh.py`` on ``torch.distributed``.  There
 every train step is compiled over a (data, model) device mesh: the batch is
-sharded on the data axis, the parameters are replicated and XLA inserts the
-gradient all-reduce.  Here the data axis takes one of two forms:
+sharded on the data axis, the heavy weights on the model axis
+(``parallel/tp.py``) and XLA inserts the collectives.  Here the grid takes
+one of two forms:
 
 * a process group — one process per device (``torch.distributed.run``), the
-  trainers' form: each process holds its contiguous rows of every global
-  batch, the parameters are broadcast from rank 0 and the gradients are
-  all-reduced (DDP, or :func:`average_gradients`);
+  trainers' form.  Global rank ``data_rank · M + model_rank``: a model group
+  is M consecutive ranks (the NVLink neighbours of a node), each holding a
+  shard of the FFT blocks (``parallel/tp.py``) and running the same rows; a
+  data group is the ranks of one model rank across the replicas, each
+  holding its contiguous rows of every global batch, the parameters broadcast
+  from its first rank and the gradients all-reduced over it (DDP, or
+  :func:`average_gradients`);
 * the devices of one process — serving and bucketization: the weights are
-  replicated once per device and every batch is split over the devices.
+  replicated once per device of the data axis and every batch is split over
+  those devices.
 
-The numbers do not depend on the topology: a train step at world size W on a
-global batch equals the step of one process on that batch.  Random draws are
-made at the global batch shape and every rank keeps its rows
-(:class:`RowDraws`), and batch statistics and loss denominators are global
-sums (:func:`global_sum`).
+The numbers do not depend on the topology: a train step on a data × model
+grid on a global batch equals the step of one process on that batch.  Random
+draws are made at the global batch shape and every rank keeps its rows
+(:class:`RowDraws`) and its model-axis slice, and batch statistics and loss
+denominators are global sums over the data axis (:func:`global_sum`).
 """
 
 from __future__ import annotations
@@ -30,20 +37,24 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from emotts_torch.parallel.tp import refuse_model_parallel
 from emotts_torch.utils.config import MeshConfig
 
 @dataclass(frozen=True)
 class Mesh:
-    """``data``: the data-axis size (the world size of ``group``, or the
-    number of ``devices`` in one process); ``rank``: this process's place on
-    it; ``group``: the process group, None in one process; ``devices``: the
-    devices this process drives (one in a process group)."""
+    """``data``: the data-axis size (the size of the data group ``group``,
+    or the number of ``devices`` in one process); ``rank``: this process's
+    place on it; ``group``: the data group, None in one process;
+    ``devices``: the devices this process drives (one in a process group).
+    ``model``, ``model_rank``, ``model_group``: the model axis, its size 1
+    and its group None without tensor parallelism."""
 
     data: int
     devices: Tuple[torch.device, ...]
     rank: int = 0
     group: Optional[Any] = None
+    model: int = 1
+    model_rank: int = 0
+    model_group: Optional[Any] = None
 
     @property
     def distributed(self) -> bool:
@@ -51,8 +62,8 @@ class Mesh:
 
     @property
     def primary(self) -> bool:
-        """The process that writes files and prints (rank 0)."""
-        return self.rank == 0
+        """The process that writes files and prints (global rank 0)."""
+        return self.rank == 0 and self.model_rank == 0
 
     def row_offset(self, local_rows: int) -> int:
         """Where this process's rows start in the global batch."""
@@ -65,24 +76,40 @@ def visible_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(n)] or [torch.device("cpu")]
 
 
+def _grid(cfg: MeshConfig, n: int) -> Tuple[int, int]:
+    """(data, model) of ``cfg`` over ``n`` devices; ``data_parallel`` -1
+    takes ``n // model_parallel``."""
+    model = max(1, cfg.model_parallel)
+    data = cfg.data_parallel if cfg.data_parallel > 0 else max(1, n // model)
+    return data, model
+
+
+def _refuse(data: int, model: int, n: int) -> None:
+    raise ValueError(
+        f"mesh {data}x{model} needs {data * model} devices, have {n}; "
+        "set mesh.data_parallel/model_parallel to match")
+
+
 def make_mesh(cfg: Optional[MeshConfig] = None,
               devices: Optional[Sequence] = None) -> Mesh:
-    """The data axis of ``cfg``.
+    """The grid of ``cfg``.
 
-    With an initialized process group it is the group: ``data_parallel``
-    -1 means its world size, and ``devices`` is this process's one device
-    (default: the current CUDA device, else the CPU).  In one process it
-    is ``devices`` (default: every visible device): -1 means all of them,
-    n > 0 the first n.  ``model_parallel > 1`` raises (tensor parallelism
-    is not ported yet)."""
+    With an initialized process group it spans the world: ``data ·
+    model_parallel`` must equal its size (``data_parallel`` -1 means
+    ``world // model_parallel``), the data and model groups are made with
+    ``dist.new_group`` (by every rank, for every group), and ``devices`` is
+    this process's one device (default: the current CUDA device under
+    NCCL, else the CPU).  In one process it is ``devices`` (default: every
+    visible device) with replicated weights: -1 means ``len(devices) //
+    model_parallel`` of them on the data axis, n > 0 the first n; the model
+    axis holds no shards there, and ``data · model_parallel`` devices must
+    exist, as the JAX package's mesh requires."""
     cfg = cfg or MeshConfig()
-    refuse_model_parallel(cfg.model_parallel)
     if dist.is_available() and dist.is_initialized():
         world = dist.get_world_size()
-        if cfg.data_parallel > 0 and cfg.data_parallel != world:
-            raise ValueError(
-                f"mesh.data_parallel={cfg.data_parallel} but the process group "
-                f"has {world} processes; set it to -1 or {world}")
+        data, model = _grid(cfg, world)
+        if world % model or data * model != world:
+            _refuse(data, model, world)
         if devices is None:
             devices = ([torch.device("cuda", torch.cuda.current_device())]
                        if torch.cuda.is_available() and dist.get_backend() == "nccl"
@@ -91,15 +118,24 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
         if len(devices) != 1:
             raise ValueError("a process of a process group drives one device, "
                              f"got {len(devices)}")
-        return Mesh(world, devices, dist.get_rank(), dist.group.WORLD)
+        if model == 1:
+            return Mesh(world, devices, dist.get_rank(), dist.group.WORLD)
+        data_rank, model_rank = divmod(dist.get_rank(), model)
+        data_group = model_group = None
+        for m in range(model):  # every rank makes every group, in one order
+            g = dist.new_group([d * model + m for d in range(data)])
+            data_group = g if m == model_rank else data_group
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            model_group = g if d == data_rank else model_group
+        return Mesh(data, devices, data_rank, data_group, model, model_rank,
+                    model_group)
     devices = [torch.device(d) for d in
                (devices if devices is not None else visible_devices())]
-    n = cfg.data_parallel if cfg.data_parallel > 0 else len(devices)
-    if n > len(devices):
-        raise ValueError(
-            f"mesh needs {n} devices on the data axis, have {len(devices)}; "
-            "set mesh.data_parallel to match")
-    return Mesh(n, tuple(devices[:n]))
+    data, model = _grid(cfg, len(devices))
+    if data * model > len(devices):
+        _refuse(data, model, len(devices))
+    return Mesh(data, tuple(devices[:data]))
 
 
 def round_up_to_multiple(n: int, m: int) -> int:
@@ -149,12 +185,13 @@ def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> List[Dict[str, Any]]:
 def replicate(mesh: Mesh, module: nn.Module) -> List[nn.Module]:
     """The replicas of ``module`` this process runs, one per device it
     drives.  In a process group the parameters and buffers are broadcast
-    from rank 0 (in place); in one process the module moves to the first
-    device and a copy goes to each further one."""
+    from the first rank of the data group (in place); in one process the
+    module moves to the first device and a copy goes to each further one."""
     if mesh.distributed:
+        src = dist.get_global_rank(mesh.group, 0)
         with torch.no_grad():
             for t in list(module.parameters()) + list(module.buffers()):
-                dist.broadcast(t.data, src=0, group=mesh.group)
+                dist.broadcast(t.data, src=src, group=mesh.group)
         return [module]
     first = module.to(mesh.devices[0])
     return [first] + [copy.deepcopy(first).to(d) for d in mesh.devices[1:]]
@@ -197,18 +234,18 @@ def average_gradients(params: Iterable[torch.nn.Parameter],
 
 
 def broadcast_object(obj, mesh: Optional[Mesh]):
-    """Rank 0's ``obj`` on every rank (e.g. an experiment directory that only
-    rank 0 may create)."""
+    """Global rank 0's ``obj`` on every rank of the world (e.g. an
+    experiment directory that only rank 0 may create)."""
     if mesh is None or not mesh.distributed:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    dist.broadcast_object_list(box, src=0)
     return box[0]
 
 
 def gather_objects(obj, mesh: Optional[Mesh]) -> List:
-    """Every rank's ``obj``, in rank order, on every rank (host objects:
-    ``gloo`` gathers no CUDA tensors)."""
+    """Every data rank's ``obj``, in rank order, on every rank of the data
+    group (host objects: ``gloo`` gathers no CUDA tensors)."""
     if mesh is None or not mesh.distributed:
         return [obj]
     out = [None] * mesh.data
@@ -285,11 +322,21 @@ def row_index(generator, n_local: int, device) -> torch.Tensor:
 
 
 def draw_rows(fn: Callable, shape: Sequence[int], generator, dim: int = 0,
+              split: Optional[Tuple[int, int, int]] = None,
               **kwargs) -> torch.Tensor:
     """``fn(shape, generator=…, **kwargs)`` (``torch.rand`` and its kin) at
     the global shape — ``shape[dim]`` times the data-axis size — keeping
     this rank's rows of ``dim``.  A plain generator draws ``shape``
-    itself."""
+    itself.  ``split`` = (dim, parts, index): the draw is also ``parts``
+    times as wide on that dim and slice ``index`` is kept — a model-axis
+    rank's heads or channels of the draw at the full width, so that every
+    rank of a model group moves its generator alike."""
+    if split is not None:
+        at, parts, index = split
+        shape = list(shape)
+        n = shape[at]
+        shape[at] = n * parts
+        return draw_rows(fn, shape, generator, dim, **kwargs).narrow(at, index * n, n)
     if not isinstance(generator, RowDraws):
         return fn(tuple(shape), generator=generator, **kwargs)
     shape = list(shape)
@@ -301,8 +348,9 @@ def draw_rows(fn: Callable, shape: Sequence[int], generator, dim: int = 0,
 
 def data_parallel(module: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
     """``module`` as a train step calls it: under a process group wrapped
-    in ``DistributedDataParallel`` (parameters broadcast from rank 0 at
-    construction, gradients averaged over the ranks in the backward); the
+    in ``DistributedDataParallel`` over the data group (parameters broadcast
+    from its first rank at construction, gradients averaged over its ranks
+    in the backward); the
     module itself otherwise.  Buffers are not re-broadcast: BatchNorm's
     running statistics move by the global batch statistics on every rank
     alike."""
@@ -331,9 +379,10 @@ def one_device(mesh: Mesh, what: str) -> torch.device:
 def serving_mesh(cfg: MeshConfig, device) -> Optional[Mesh]:
     """The mesh that serving and bucketization engage by themselves: on a
     CUDA ``device``, outside a process group, where ``cfg`` would span more
-    than one GPU (``data_parallel`` -1 and several visible, or n > 1);
-    None otherwise — one device runs unsharded, as the reference's
-    ``load_synthesizer`` does."""
+    than one GPU (``data_parallel`` -1 and several visible, or n > 1); its
+    data axis is ``devices // model_parallel`` with the weights replicated,
+    as the reference's ``load_synthesizer`` takes it.  None otherwise — one
+    device runs unsharded."""
     if torch.device(device).type != "cuda" or (dist.is_available()
                                                and dist.is_initialized()):
         return None

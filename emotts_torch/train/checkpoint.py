@@ -48,8 +48,15 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, state: TrainState) -> None:
-        _save_atomically(state.state_dict(), self.ckpt_dir / f"step_{state.step}.pt")
+    def save(self, state) -> None:
+        """Write ``state`` (a train state, or a ``TrainState.state_dict()``
+        taken already) as ``step_<step>.pt``, dropping all but the last
+        ``keep``."""
+        if isinstance(state, dict):
+            snapshot, step = state, state["step"]
+        else:
+            snapshot, step = state.state_dict(), state.step
+        _save_atomically(snapshot, self.ckpt_dir / f"step_{step}.pt")
         for old in self.steps()[:-self.keep] if self.keep > 0 else []:
             (self.ckpt_dir / f"step_{old}.pt").unlink()
 
@@ -82,6 +89,7 @@ def save_best_export(exp_path: str, state_dict: Dict[str, torch.Tensor]) -> str:
 
 
 def load_best_params(exp_path: str, device="cpu") -> Dict[str, torch.Tensor]:
-    """The best-params export of an experiment directory, as a state_dict."""
+    """The best-params export of an experiment directory, as a state_dict
+    (full tensors, whatever model axis trained it)."""
     path = (Path(exp_path) / "best" / BEST_FILE).absolute()
     return torch.load(path, map_location=device, weights_only=True)

@@ -20,8 +20,9 @@ Under data parallelism (a process group, one process per device, as in
 ``RankTrainer``) the model runs in DDP, each process loads its rows of every
 global batch and runs the frozen extractor on them, the dropout masks, the
 PostNet's BatchNorm statistics and every loss denominator are those of the
-global batch, and only rank 0 writes the experiment's files and vocoded
-samples.
+global batch, and only global rank 0 writes the experiment's files and
+vocoded samples.  With a model axis the FFT blocks are sharded as in
+``RankTrainer``; the frozen extractor stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -47,11 +48,13 @@ from emotts_torch.nn.length_regulator import segment_mean
 from emotts_torch.ops.attention import resolve_fused_attention
 from emotts_torch.parallel.mesh import (Mesh, data_parallel, row_draws,
                                         set_batch_norm_group)
+from emotts_torch.parallel.tp import average_replicated_gradients, shard_module_
 from emotts_torch.train.checkpoint import CheckpointManager
 from emotts_torch.train.metrics import (EpochAverager, StepTimer,
                                         profile_trace)
 from emotts_torch.train.rank_trainer import (_read_back, open_experiment,
-                                             trainer_mesh, valid_rows)
+                                             save_checkpoint, trainer_mesh,
+                                             valid_rows)
 from emotts_torch.train.state import TrainState, make_optimizer
 from emotts_torch.utils.config import Config
 from emotts_torch.utils.experiment import set_seed
@@ -143,13 +146,14 @@ class FS2Trainer:
         self.vocoder = vocoder
         model = build_fastspeech2(cfg, device=self.device)
         init_fs2_variables(model, cfg.train_fs2.seed)
+        shard_module_(model, self.mesh)
         model.to(self.device)
         self.extractor = build_intensity_extractor(cfg, device=self.device)
         self.extractor.load_state_dict(extractor_params)
         self.extractor.to(self.device).eval().requires_grad_(False)
         self.state = TrainState(
             model, make_optimizer(cfg.train_fs2, model.parameters()),
-            cfg.train_fs2.seed, self.device, streams=("dropout",),
+            cfg.train_fs2.seed, self.device, streams=("dropout",), mesh=self.mesh,
         )
         set_batch_norm_group(model, self.mesh)
         self._step_model = data_parallel(model, self.mesh)
@@ -186,6 +190,7 @@ class FS2Trainer:
                                 b["phon_len"], self.cfg.loss, mesh=self.mesh)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        average_replicated_gradients(state.model, self.mesh)
         state.optimizer.step()
         state.step += 1
         return _read_back(parts)
@@ -345,13 +350,12 @@ class FS2Trainer:
                         print(f"[fs2] epoch {epoch}: "
                               f"train {train_means.get('total_loss', 0):.4f} "
                               f"valid {val_loss:.4f}")
-                    if ckpt is not None:
-                        ckpt.save(self.state)
+                    snapshot = save_checkpoint(self.state, ckpt)
                     if val_loss < best_val:
                         best_val = val_loss
                         patience = 0
                         if ckpt is not None:
-                            ckpt.save_best(self.state.model.state_dict())
+                            ckpt.save_best(snapshot["model"])
                     else:
                         patience += 1
                         if patience >= tr.patience:

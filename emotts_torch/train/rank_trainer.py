@@ -8,12 +8,16 @@ step-indexed checkpoints and a best-params export.
 Mixup weights and dropout masks come from two ``torch.Generator``s that the
 train state owns and checkpoints, so a resumed run continues their streams.
 Under data parallelism (a process group, one process per device: ``mesh``,
-default ``make_mesh(cfg.mesh)``) the model runs in DDP, each process loads
-its rows of every global batch, the draws and the loss are those of the
-global batch, and a step equals one process's step on that batch.  Only
-rank 0 creates the experiment directory and writes checkpoints, scalars and
-plots; every rank restores, and the decisions (best, early stop) come from
-global numbers, so the ranks stay in lockstep.
+default ``make_mesh(cfg.mesh)``) the model runs in DDP over the data group,
+each process loads its rows of every global batch, the draws and the loss
+are those of the global batch, and a step equals one process's step on that
+batch.  With a model axis (``mesh.model_parallel`` M > 1) every rank builds
+the full model from the seed and keeps its shard of the FFT blocks
+(``parallel.tp``); the M ranks of a model group load the same rows.  Only
+global rank 0 creates the experiment directory and writes checkpoints (full
+tensors, gathered over the model group), scalars and plots; every rank
+restores, and the decisions (best, early stop) come from global numbers, so
+the ranks stay in lockstep.
 Metrics are read back from the device once per step.  Validation on the
 artifact epochs (``artifact_every_epochs``) and the last writes
 ``<exp>/tsne_epoch_{epoch}.png`` of the pooled features (where scikit-learn
@@ -39,6 +43,7 @@ from emotts_torch.ops.attention import resolve_fused_attention
 from emotts_torch.parallel.mesh import (Mesh, broadcast_object, data_parallel,
                                         gather_objects, global_sum, make_mesh,
                                         one_device, row_draws)
+from emotts_torch.parallel.tp import average_replicated_gradients, shard_module_
 from emotts_torch.train.checkpoint import CheckpointManager
 from emotts_torch.train.metrics import (EpochAverager, MetricsWriter, StepTimer,
                                         profile_trace)
@@ -77,6 +82,7 @@ def build_rank_model(cfg: Config, dtype: Optional[torch.dtype] = None,
         dropout=rm.dropout,
         fused_attention=resolve_fused_attention(rm.fused_attention, device),
         dtype=dtype,
+        remat=rm.remat,
     )
 
 
@@ -106,10 +112,11 @@ class RankTrainer:
         self.device, self.mesh = trainer_mesh(cfg, device, mesh, "RankTrainer")
         model = build_rank_model(cfg, device=self.device)
         init_rank_model(model, cfg.train_rank.seed)
+        shard_module_(model, self.mesh)
         model.to(self.device)
         self.state = TrainState(
             model, make_optimizer(cfg.train_rank, model.parameters()),
-            cfg.train_rank.seed, self.device,
+            cfg.train_rank.seed, self.device, mesh=self.mesh,
         )
         self._step_model = data_parallel(model, self.mesh)
 
@@ -136,6 +143,7 @@ class RankTrainer:
                                   mesh=mesh)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        average_replicated_gradients(state.model, self.mesh)
         state.optimizer.step()
         state.step += 1
         return _read_back(metrics)
@@ -301,13 +309,12 @@ class RankTrainer:
                             f"informative {val_means.get('loss_informative', 0):.4f} "
                             f"pair_acc {val_means.get('pair_order_acc', 0):.3f}"
                         )
-                    if ckpt is not None:
-                        ckpt.save(self.state)
+                    snapshot = save_checkpoint(self.state, ckpt)
                     if val_loss < best_val:
                         best_val = val_loss
                         patience = 0
                         if ckpt is not None:
-                            ckpt.save_best(self.state.model.state_dict())
+                            ckpt.save_best(snapshot["model"])
                     else:
                         patience += 1
                         if patience >= tr.patience:
@@ -350,6 +357,16 @@ def open_experiment(trainer, exp_path: Optional[str], resume: bool, base: str,
     if not mesh.primary:
         return exp_path, None, None
     return exp_path, MetricsWriter(exp_path), CheckpointManager(exp_path, keep=keep)
+
+
+def save_checkpoint(state: TrainState, ckpt: Optional[CheckpointManager]) -> dict:
+    """Write ``state``'s checkpoint where this rank has the manager (global
+    rank 0); returns the full state.  Every rank calls it: under tensor
+    parallelism the full tensors are gathered over each model group."""
+    snapshot = state.state_dict()
+    if ckpt is not None:
+        ckpt.save(snapshot)
+    return snapshot
 
 
 def _read_back(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -5,7 +5,10 @@ parameters, optimizer moments, the step counter and the states of the random
 generators — so that training is exactly resumable: a resumed run continues
 the same random streams.  The reference's ``batch_stats`` (BatchNorm running
 statistics) are buffers of the model here, so they travel with its
-``state_dict`` into checkpoints and the ``best/`` export.
+``state_dict`` into checkpoints and the ``best/`` export.  Under tensor
+parallelism a checkpoint holds the full tensors, parameters and moments
+alike, whatever the model axis it was written at, and every rank restores
+its slices (``parallel.tp``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from emotts_torch.parallel.mesh import Mesh
+from emotts_torch.parallel.tp import (gather_state_dict, gather_tensor,
+                                      shard_state_dict, shard_tensor)
 from emotts_torch.utils.config import TrainConfig
 
 
@@ -118,31 +124,57 @@ def make_optimizer(cfg: TrainConfig, params: Iterable) -> AdamW:
 class TrainState:
     """What a trainer carries from step to step and writes to a checkpoint:
     the step counter, the model, its optimizer, and the named generators the
-    step draws from (made on the model's device, seeded from ``seed``)."""
+    step draws from (made on the model's device, seeded from ``seed``).
+    ``mesh``: the grid of a model sharded by ``parallel.tp.shard_module_``
+    (None, or a model axis of 1, for a whole model)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
-                 seed: int, device, streams=("mixup", "dropout")):
+                 seed: int, device, streams=("mixup", "dropout"),
+                 mesh: Optional[Mesh] = None):
         self.step = 0
         self.model = model
         self.optimizer = optimizer
+        self.mesh = mesh
         self.generators: Dict[str, torch.Generator] = {}
         for i, name in enumerate(streams):
             gen = torch.Generator(device=device)
             gen.manual_seed(seed * 7919 + i)
             self.generators[name] = gen
 
+    def _map_moments(self, opt_state: dict, fn) -> dict:
+        """``opt_state`` with ``fn(parameter name, moment)`` for each moment."""
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        state = {i: {k: fn(names[id(params[i])], v) if k in ("mu", "nu") else v
+                     for k, v in st.items()}
+                 for i, st in opt_state["state"].items()}
+        return dict(opt_state, state=state)
+
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's full ``state_dict``: under tensor parallelism its
+        shards gathered over the model group (a collective: every rank of
+        the group calls it)."""
+        return gather_state_dict(self.model.state_dict(), self.mesh)
+
     def state_dict(self) -> dict:
+        """The checkpoint: full tensors under tensor parallelism (a
+        collective over the model group, as :meth:`model_state_dict`)."""
         return {
             "step": self.step,
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": self.model_state_dict(),
+            "optimizer": self._map_moments(
+                self.optimizer.state_dict(),
+                lambda name, t: gather_tensor(name, t, self.mesh)),
             "generators": {k: g.get_state() for k, g in self.generators.items()},
         }
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore a checkpoint of full tensors (this rank's slices of them
+        under tensor parallelism)."""
         self.step = int(state["step"])
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.model.load_state_dict(shard_state_dict(state["model"], self.mesh))
+        self.optimizer.load_state_dict(self._map_moments(
+            state["optimizer"], lambda name, t: shard_tensor(name, t, self.mesh)))
         moment_dtype: Optional[torch.dtype] = getattr(
             self.optimizer, "moment_dtype", None)
         if moment_dtype is not None:

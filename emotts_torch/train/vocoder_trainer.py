@@ -34,7 +34,11 @@ generator's loss back through the just-updated discriminators, more than
 the one forward per backward DDP's reducer expects.  Each model's gradients
 are averaged over the ranks instead (one flattened all-reduce) before its
 AdamW step; every loss is a mean over equal local batches, so that average
-is the global batch's gradient.  Only rank 0 writes the experiment.
+is the global batch's gradient.  Only rank 0 writes the experiment.  A
+model axis replicates, as in the JAX package (no rule of its
+``parallel/tp.py`` matches the vocoder's parameters): ``rank`` and ``W``
+are the data rank and size, so the M ranks of a model group run the same
+rows and the same step.
 """
 
 from __future__ import annotations
@@ -247,7 +251,7 @@ class VocoderTrainer:
         init = torch.Generator().manual_seed(vc.seed)
         gen = seeded_init_(build_vocoder_generator(cfg), init).to(self.device)
         disc = seeded_init_(build_discriminators(cfg), init).to(self.device)
-        for model in (gen, disc):  # rank 0's weights on every rank
+        for model in (gen, disc):  # the data group's first weights on its ranks
             replicate(self.mesh, model)
 
         def optimizer(params):

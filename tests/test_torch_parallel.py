@@ -19,8 +19,8 @@ from emotts_torch.infer.synthesize import Synthesizer
 from emotts_torch.nn.blocks import draw_attention_seeds, dropout
 from emotts_torch.parallel import (Mesh, RowDraws, average_gradients,
                                    data_axis_size, draw_rows, global_sum,
-                                   make_mesh, refuse_model_parallel, replicate,
-                                   round_up_to_multiple, row_draws, shard_batch)
+                                   make_mesh, replicate, round_up_to_multiple,
+                                   row_draws, shard_batch, shard_module_)
 from emotts_torch.parallel.mesh import local_mesh, one_device, serving_mesh
 from emotts_torch.train.rank_trainer import (RankTrainer, build_rank_model,
                                              init_rank_model)
@@ -46,13 +46,41 @@ def test_make_mesh_sizes():
         make_mesh(MeshConfig(data_parallel=3), devices=CPU2)
 
 
-@pytest.mark.parametrize("model_parallel", [2, 4])
-def test_model_parallel_is_refused(model_parallel):
-    with pytest.raises(ValueError, match="tensor parallelism is not ported yet"):
-        make_mesh(MeshConfig(model_parallel=model_parallel))
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        refuse_model_parallel(model_parallel)
-    refuse_model_parallel(1)
+@pytest.mark.parametrize("case", ["accepted", "indivisible_heads", "off_the_world"])
+def test_model_parallel_grid(case, tmp_path):
+    """``mesh.model_parallel``: M = 2 accepted (a data axis of devices / 2
+    in one process; the model group of a process group in
+    tests/test_torch_tensor_parallel.py); M = 4 refused where it does not
+    divide the 2 heads; ``data · model`` other than the world refused."""
+    cfg = Config()
+    if case == "accepted":
+        mesh = make_mesh(MeshConfig(model_parallel=2), devices=["cpu"] * 4)
+        assert (mesh.data, mesh.model, mesh.primary) == (2, 1, True)
+        model = build_rank_model(cfg, dtype=torch.float32, device="cpu")
+        grid = Mesh(1, (torch.device("cpu"),), model=2, model_rank=1, model_group=object())
+        shard_module_(model, grid)
+        attn = model.intensity_extractor.fft.layers[0].attn
+        assert attn.query.weight.shape == (cfg.rank_model.hidden_dim // 2,
+                                           cfg.rank_model.hidden_dim)
+        assert attn.model_axis.rank == 1
+    elif case == "indivisible_heads":
+        assert cfg.rank_model.n_heads == 2
+        model = build_rank_model(cfg, dtype=torch.float32, device="cpu")
+        grid = Mesh(1, (torch.device("cpu"),), model=4, model_rank=0, model_group=object())
+        with pytest.raises(ValueError, match="does not divide n_heads=2"):
+            shard_module_(model, grid)
+        with pytest.raises(ValueError, match="mesh 1x4 needs 4 devices, have 2"):
+            make_mesh(MeshConfig(model_parallel=4), devices=CPU2)
+    else:
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+        try:
+            with pytest.raises(ValueError, match="mesh 1x2 needs 2 devices, have 1"):
+                make_mesh(MeshConfig(model_parallel=2))
+            with pytest.raises(ValueError, match="mesh 3x1 needs 3 devices, have 1"):
+                make_mesh(MeshConfig(data_parallel=3))
+        finally:
+            torch.distributed.destroy_process_group()
 
 
 def test_round_up_and_data_axis_size_match_the_reference():

@@ -29,10 +29,10 @@ def _grads(model) -> dict:
 
 
 def seeded(build):
-    """``build()`` with the global generator seeded: the seeded init
-    (``nn.init.seeded_init_``) redraws the matrices from the trainer's seed,
-    while the constructed vectors (``nn.Linear`` biases) come from the
-    global generator, so that one process and two agree on them."""
+    """``build()`` with the global generator seeded.  The seeded init
+    (``nn.init.seeded_init_``) alone decides a trainer's starting weights
+    (tests/test_torch_tensor_parallel.py builds without this); these tests
+    keep the seed as they were written."""
     import torch
 
     torch.manual_seed(0)
