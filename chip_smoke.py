@@ -117,6 +117,22 @@ a non-zero exit:
               beside it the spread of two plain steps from one state; wall,
               device ms, launches and peak memory of each.  Phase 3
               holds the attention kernels at the grid's H = 1 too.
+24. g2p       the neural G2P (emotts_torch/text/neural_g2p.py, g2p_train.py)
+              at the bundled architecture (d 256, 3 + 3 layers, 8 heads),
+              on tools/train_g2p.py's pairs: (a) the bundled weights through
+              G2PTransformer teacher-forced on 64 held-out words against the
+              numpy path (logits within 2e-4, the same argmax); (b)
+              batched_greedy_decode over the whole held-out set (wall,
+              words/s, exact and PER beside the file's recorded ones), its
+              ids against np_greedy_decode on 256 of the words; (c) one
+              epoch from init_params(0) (batch 512, dropout 0.2, label
+              smoothing 0.1): finite losses falling, wall, peak memory, a
+              step's median wall, profiler reading and FLOPs with their
+              bound; (d) at d 64 on 4,096 pairs under deterministic
+              algorithms, 2 epochs straight against 1 + a resume (bit for
+              bit), then tools/train_g2p_torch.py as a subprocess (1 epoch,
+              its weights decoded by NeuralG2P).  None of the four kernels
+              runs on this path (its counters stay at 0).
 
 The last line is {"ok": true, "device": {...}}; before it stand the card line
 and one {"kernels": [...]} line.  Without a GPU the script exits non-zero and
@@ -3756,6 +3772,297 @@ def tp_phase(root, rank_exp, dev):
         seconds=time.perf_counter() - t0, part_seconds=dict(a=t1 - t0, b=time.perf_counter() - t1),
         grid_two_processes=grid, remat=remat, launches=launches)
 
+# --------------------------------------------------------------------------
+# 24. the neural G2P's training and batched decode
+# --------------------------------------------------------------------------
+
+PEAK_FP32 = 67e12  # CUDA cores, float32: the G2P multiplies with TF32 off
+G2P_FORWARD_WORDS = 64  # held-out words teacher-forced through both forwards
+G2P_LOGIT_TOL = 2e-4  # atol and rtol, as tests/test_neural_g2p.py holds numpy and JAX
+G2P_SAMPLE = 256  # held-out words decoded by np_greedy_decode beside the sweep
+G2P_SPLIT_GAP = 1e-4  # a row may split from numpy's only at a near-tie
+G2P_TRAIN = dict(batch=512, dropout=0.2, label_smoothing=0.1, lr=1e-3, epochs=1)
+G2P_STEP_TIMES = 20  # synchronised steps for the median
+G2P_RESUME = dict(d_model=64, d_ff=256, layers=2, heads=4, batch=512, epochs=2,
+                  dropout=0.2, label_smoothing=0.1, lr=1e-3, checkpoint_every=1)
+G2P_RESUME_PAIRS = 4096
+
+
+def g2p_args(dev, out, **flags):
+    """tools/train_g2p_torch.py's arguments, with ``flags``."""
+    from emotts_torch.text import g2p_train
+
+    argv = ["--device", str(dev), "--out", str(out)]
+    for key, value in flags.items():
+        argv += [f"--{key.replace('_', '-')}", str(value)]
+    return g2p_train.build_parser().parse_args(argv)
+
+
+def np_teacher_forced(p, chars, prev, heads):
+    """The numpy path's logits (len(prev), V) for one word teacher-forced
+    over ``prev`` (tests/test_neural_g2p.py's mirror of the decoder stack)."""
+    from emotts_torch.text import neural_g2p as ng
+
+    enc = ng._np_encode(p, chars, heads)
+    tp = len(prev)
+    x = p["phon_emb"][np.asarray(prev)] + p["phon_pos"][:tp]
+    causal = np.triu(np.full((tp, tp), -1e9, dtype=np.float32), k=1)
+    enc_mask = np.zeros((tp, enc.shape[0]), dtype=np.float32)
+    for i in range(ng.arch_of(p, heads)["n_dec"]):
+        x = ng._dec_layer(x, enc, p, f"dec{i}_", causal, enc_mask, heads)
+    return ng._ln(x, p["dec_ln_g"], p["dec_ln_b"]) @ p["out_proj"]
+
+
+def g2p_forward_check(p, heads, eval_pairs, dev):
+    """(a) The bundled weights through G2PTransformer on the card, teacher-
+    forced on held-out words over their numpy greedy outputs, against the
+    numpy path: logits within G2P_LOGIT_TOL, the same argmax."""
+    from emotts_torch.text import neural_g2p as ng
+
+    pick = np.random.default_rng(SEED).permutation(len(eval_pairs))[:G2P_FORWARD_WORDS]
+    chars = np.stack([ng.encode_word(eval_pairs[i][0]) for i in pick])
+    prefixes = [([ng.PHON_BOS] + ng.np_greedy_decode(p, c, heads))[:ng.MAX_PHON_LEN]
+                for c in chars]
+    phon = np.zeros((len(chars), ng.MAX_PHON_LEN), np.int64)
+    for i, prev in enumerate(prefixes):
+        phon[i, :len(prev)] = prev
+    model = ng.G2PTransformer.from_flat(p, heads, dev)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(chars).long().to(dev),
+                    torch.from_numpy(phon).to(dev)).cpu().numpy()
+    worst, max_abs, same_argmax = 0.0, 0.0, True
+    for i, prev in enumerate(prefixes):
+        want = np_teacher_forced(p, chars[i], prev, heads)
+        diff = np.abs(got[i, :len(prev)] - want)
+        max_abs = max(max_abs, float(diff.max()))
+        worst = max(worst, float((diff / (G2P_LOGIT_TOL + G2P_LOGIT_TOL * np.abs(want))).max()))
+        same_argmax &= bool((got[i, :len(prev)].argmax(-1) == want.argmax(-1)).all())
+    res = dict(words=len(chars), positions=sum(map(len, prefixes)), max_abs_err=max_abs,
+               worst_of_tolerance=worst, tolerance=G2P_LOGIT_TOL, same_argmax=same_argmax)
+    if worst > 1.0 or not same_argmax:
+        raise AssertionError(f"g2p (a) forward: {res}")
+    return res
+
+
+def _ids_before_eos(row):
+    from emotts_torch.text import neural_g2p as ng
+
+    out = []
+    for i in row:
+        if int(i) in (ng.PHON_EOS, ng.PHON_PAD):
+            break
+        out.append(int(i))
+    return out
+
+
+def g2p_sweep(p, heads, eval_pairs, recorded, dev):
+    """(b) batched_greedy_decode of the bundled weights over the whole
+    held-out set on the card: wall, words/s, exact and PER beside the
+    file's recorded metrics; the ids against np_greedy_decode on a seeded
+    sample, where a row may differ only at a top-two logit gap under
+    G2P_SPLIT_GAP of numpy's at the step where it splits."""
+    from emotts_torch.text import g2p_train as gt
+    from emotts_torch.text import neural_g2p as ng
+
+    chars = np.stack([ng.encode_word(w) for w, _ in eval_pairs])
+    ng.batched_greedy_decode(p, chars[:512], heads, device=dev)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = ng.batched_greedy_decode(p, chars, heads, device=dev)
+    wall = time.perf_counter() - t0
+    hyps = [ng.decode_phoneme_ids(r) for r in rows]
+    exact = sum(h == ref for h, (_, ref) in zip(hyps, eval_pairs)) / len(eval_pairs)
+    per = (sum(gt._edit(h, ref) for h, (_, ref) in zip(hyps, eval_pairs))
+           / sum(len(ref) for _, ref in eval_pairs))
+    pick = np.random.default_rng(SEED + 1).permutation(len(eval_pairs))[:G2P_SAMPLE]
+    gaps, never_end = [], 0
+    for i in pick:
+        want = ng.np_greedy_decode(p, chars[i], heads)
+        got = _ids_before_eos(rows[i])
+        if got == want:
+            continue
+        if got == want[:ng.MAX_PHON_LEN - 1]:
+            # no EOS in MAX_PHON_LEN - 1 steps: the numpy decoder takes one
+            # step more (emotts/text/neural_g2p.py::jax_batched_greedy_decode)
+            never_end += 1
+            continue
+        k = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        enc = ng._np_encode(p, chars[i], heads)
+        top = np.sort(ng._np_step_logits(p, enc, [ng.PHON_BOS] + want[:k], heads))
+        gaps.append(float(top[-1] - top[-2]))
+    res = dict(words=len(chars), wall_s=wall, words_per_s=len(chars) / wall,
+               chunk=512, steps_per_chunk=ng.MAX_PHON_LEN - 1, exact=exact, per=per,
+               recorded_exact=recorded.get("exact"), recorded_per=recorded.get("per"),
+               numpy_sample=len(pick), rows_differing_from_numpy=len(gaps),
+               rows_without_eos=never_end,
+               split_gaps=gaps, split_gap_limit=G2P_SPLIT_GAP)
+    if any(g >= G2P_SPLIT_GAP for g in gaps):
+        raise AssertionError(f"g2p (b) sweep: rows split from numpy's above the gap limit: {res}")
+    return res
+
+
+class G2PStepper:
+    """One G2P train step in the trainers' shape (``train_step(batch)``),
+    for profile_steps: a fresh model and AdamW at ``args``' sizes."""
+
+    def __init__(self, args, dev):
+        from emotts_torch.text import neural_g2p as ng
+        from emotts_torch.train.state import AdamW
+
+        self.args, self.n = args, 0
+        self.model = ng.G2PTransformer.from_flat(ng.init_params(
+            0, d_model=args.d_model, d_ff=args.d_ff, n_enc=args.layers,
+            n_dec=args.layers), args.heads, dev)
+        self.opt = AdamW(self.model.parameters(), lr=args.lr, weight_decay=1e-4)
+        self.gen = torch.Generator(device=dev)
+
+    def train_step(self, batch):
+        from emotts_torch.text import g2p_train as gt
+
+        self.gen.manual_seed(gt.step_seed(0, self.n))
+        self.n += 1
+        return gt.train_step(self.model, self.opt, *batch, dropout_rate=self.args.dropout,
+                             smoothing=self.args.label_smoothing, generator=self.gen)
+
+
+def g2p_train_epoch(p, heads, pairs, root, dev):
+    """(c) One full epoch at the bundled architecture from init_params(0)
+    on the whole training set: finite losses, the epoch's mean below its
+    first step's, wall, peak memory; then a fresh step's median wall over
+    G2P_STEP_TIMES synchronised steps, a profiler reading of three steps
+    and its matmul operations (FlopCounterMode) with their bound on the CUDA
+    cores' fp32 peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from emotts_torch.text import g2p_train as gt
+    from emotts_torch.text import neural_g2p as ng
+
+    arch = ng.arch_of(p, heads)
+    assert arch["n_enc"] == arch["n_dec"]
+    args = g2p_args(dev, os.path.join(root, "g2p_epoch.npz"), d_model=arch["d_model"],
+                    d_ff=arch["d_ff"], layers=arch["n_enc"], heads=heads, **G2P_TRAIN)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+    gt.train(args, pairs=pairs, history=history)
+    losses = history[0]["losses"]
+    res = dict(arch=arch, parameters=sum(v.size for v in p.values()),
+               pairs=len(pairs[0]), steps=len(losses), epoch_s=history[0]["seconds"],
+               first_loss=float(losses[0]), mean_loss=float(losses.mean()),
+               last_loss=float(losses[-1]), finite=bool(np.isfinite(losses).all()),
+               peak_bytes=torch.cuda.max_memory_allocated() - base)
+    if not res["finite"] or not res["mean_loss"] < res["first_loss"]:
+        raise AssertionError(f"g2p (c) training: {res}")
+
+    stepper = G2PStepper(args, dev)
+    batch = tuple(torch.from_numpy(a).long().to(dev) for a in gt.vectorize(pairs[0][:args.batch]))
+    for _ in range(3):
+        stepper.train_step(batch)
+    walls = []
+    for _ in range(G2P_STEP_TIMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stepper.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    reading = profile_steps(stepper, {args.batch: batch}, rows=lambda b: len(b[0]),
+                            timed=5, traced=3, host_ops=False,
+                            groups=(("gemm", "gemm"),))[str(args.batch)]
+    with FlopCounterMode(display=False) as counter:
+        stepper.train_step(batch)
+    flops = counter.get_total_flops()
+    res.update(step_ms_median=float(np.median(walls)), step_ms_min=min(walls),
+               step_reading=reading, step_flops=flops,
+               step_bound_ms=1e3 * flops / PEAK_FP32, bound_by="operations",
+               epoch_bound_s=flops * len(losses) / PEAK_FP32)
+    return res
+
+
+def g2p_resume(pairs, root, dev):
+    """(d) At d_model 64 on G2P_RESUME_PAIRS pairs under deterministic
+    algorithms: 2 epochs straight, checkpointing after the first, against a
+    fresh trainer resuming the second from that checkpoint (weights and SWA
+    weights bit-identical); then the tool as a subprocess (1 epoch on the
+    whole set at the same widths, --final-eval-limit 512): its weight file
+    loads in the port's NeuralG2P and decodes."""
+    import shutil
+
+    from emotts_torch.text import g2p_train as gt
+    from emotts_torch.text import neural_g2p as ng
+
+    sub = (pairs[0][:G2P_RESUME_PAIRS], pairs[1])
+    straight_out = os.path.join(root, "g2p_straight.npz")
+    kept = os.path.join(root, "g2p_epoch1.resume.npz")
+    with deterministic_algorithms():
+        straight, straight_swa, _, _ = gt.train(g2p_args(dev, straight_out, **G2P_RESUME),
+                                                pairs=sub)
+        shutil.copy(os.path.join(root, "g2p_straight.resume.npz"), kept)
+        resumed, resumed_swa, _, _ = gt.train(g2p_args(
+            dev, os.path.join(root, "g2p_resumed.npz"), resume_from=kept, **G2P_RESUME),
+            pairs=sub)
+    res = dict(pairs=len(sub[0]), widths=G2P_RESUME,
+               weights_bit_identical=all(np.array_equal(straight[k], resumed[k])
+                                         for k in straight),
+               swa_bit_identical=straight_swa is not None and all(
+                   np.array_equal(straight_swa[k], resumed_swa[k]) for k in straight_swa))
+    if not (res["weights_bit_identical"] and res["swa_bit_identical"]):
+        raise AssertionError(f"g2p (d) resume: {res}")
+
+    out = os.path.join(root, "g2p_tool.npz")
+    small = {k: G2P_RESUME[k] for k in ("d_model", "d_ff", "layers", "heads")}
+    cmd = [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "tools", "train_g2p_torch.py"),
+           "--device", "cuda", "--epochs", "1", "--final-eval-limit", "512", "--out", out]
+    for key, value in small.items():
+        cmd += [f"--{key.replace('_', '-')}", str(value)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    tool_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"g2p (d) tool exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    g2p = ng.NeuralG2P(out)
+    words = ["zembla", "blorptastic", "crystalline", "thunderous"]
+    decoded = {w: g2p.word_to_phonemes(w) for w in words}
+    data = np.load(out)
+    res["tool"] = dict(seconds=tool_s, argv=cmd[2:], decoded=decoded,
+                       eval_exact=float(data["__eval_exact__"][0]),
+                       eval_per=float(data["__eval_per__"][0]),
+                       log_tail=[ln for ln in proc.stdout.splitlines()
+                                 if ln.startswith(("epoch", "selected", "saved", "[held-out]"))])
+    if not any(decoded.values()):
+        raise AssertionError(f"g2p (d) tool weights decode nothing: {res}")
+    return res
+
+
+def g2p_phase(root, dev):
+    """Phase 24: the pairs (tools/train_g2p.py's split), then (a)-(d); one
+    JSON line a part."""
+    from emotts_torch.text import g2p_train as gt
+    from emotts_torch.text import neural_g2p as ng
+
+    t0 = time.perf_counter()
+    pairs = gt.build_pairs(seed=0, holdout_frac=0.1)
+    pairs_s = time.perf_counter() - t0
+    p, heads = gt.load_weights(ng.BUNDLED_WEIGHTS)
+    data = np.load(ng.BUNDLED_WEIGHTS)
+    recorded = dict(exact=float(data["__eval_exact__"][0]), per=float(data["__eval_per__"][0]))
+    seconds = dict(pairs=pairs_s)
+    for part, run in (("forward", lambda: g2p_forward_check(p, heads, pairs[1], dev)),
+                      ("sweep", lambda: g2p_sweep(p, heads, pairs[1], recorded, dev)),
+                      ("train_epoch", lambda: g2p_train_epoch(p, heads, pairs, root, dev)),
+                      ("resume", lambda: g2p_resume(pairs, root, dev))):
+        t1 = time.perf_counter()
+        res = run()
+        seconds[part] = res["seconds"] = time.perf_counter() - t1
+        emit(f"g2p_{part}", **res)
+        torch.cuda.empty_cache()
+    return dict(seconds=time.perf_counter() - t0, part_seconds=seconds,
+                train_pairs=len(pairs[0]), eval_pairs=len(pairs[1]))
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3931,6 +4238,18 @@ def main():
         # -- 23. tensor parallelism and remat ---------------------------------
         tp_launches, tp_report = tp_phase(root, exp, dev)
         emit("tensor_parallel", card=card, **tp_report)
+        torch.cuda.empty_cache()
+
+        # -- 24. the neural G2P: training and batched decode --------------------
+        zero_counts(attention, mrf, resblock)
+        g2p_report = g2p_phase(root, dev)
+        g2p_launches = dict(fused_attention=attention.launch_count,
+                            fused_attention_bwd=attention.bwd_launch_count,
+                            fused_mrf_stage=mrf.launch_count,
+                            fused_resblock1=resblock.launch_count)
+        emit("g2p", card=card, kernel_launches=g2p_launches, **g2p_report)
+        if any(g2p_launches.values()):  # its products are torch.matmul alone
+            raise AssertionError(f"g2p: a kernel of another path ran: {g2p_launches}")
 
     # -- summary ---------------------------------------------------------------
     # a kernel's launches over the counted paths
@@ -3939,7 +4258,7 @@ def main():
                    fs2_training=fs2_launches, streaming=stream_launches,
                    evaluation=eval_launches, vocoder_training=voc_launches,
                    cli=cli_launches, data_parallel=dp_launches,
-                   tensor_parallel=tp_launches)
+                   tensor_parallel=tp_launches, g2p=g2p_launches)
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in ("fused_attention", "fused_attention_bwd",
                              "fused_mrf_stage", "fused_resblock1")}

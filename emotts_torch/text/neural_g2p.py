@@ -8,21 +8,31 @@ lexicon plus its regular morphological expansions (tools/train_g2p.py).  It
 slots into the G2P fallback chain *between* the lexicon/morphology lookup and
 the rule LTS: lexicon -> morphology -> neural -> rules.
 
-This copy holds the numpy forward only (inference): the text frontend is
-host-side work on a ~1M-param model and needs no device.  The training-side
-mirror of the same math lives in ``emotts/text/neural_g2p.py`` and reads the
-same flat weight dict (``g2p_weights.npz``).  Everything is fp32 with
-exact-erf GELU.
+Two forward implementations share one flat weight dict (the packaged
+``g2p_weights.npz``):
+
+* **numpy** (inference, default) — the text frontend is host-side work and
+  needs no device; greedy decode of one word is milliseconds on a CPU.
+* **PyTorch** (training and batched decode, ``G2PTransformer``,
+  ``batched_greedy_decode``) — the same math batched over padded words, with
+  dropout for training; ``emotts_torch/text/g2p_train.py`` trains it.
+
+Everything is fp32 with exact-erf GELU (TF32 off on a GPU), so the two paths
+agree up to the order of their sums.
 """
 
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 from scipy.special import erf
+from torch import nn
 
 from emotts_torch.text.vocab import VALID_SYMBOLS
 
@@ -266,6 +276,215 @@ def np_beam_decode(
     if seq and seq[-1] == PHON_EOS:
         seq = seq[:-1]
     return seq
+
+
+# ---------------------------------------------------------------------------
+# PyTorch forward (training + batched decode)
+# ---------------------------------------------------------------------------
+
+
+def g2p_device(device) -> torch.device:
+    """The device a G2P entry point runs on (``resolve_device``: CUDA unless
+    the caller asks for the CPU, and never elsewhere than asked).  On a GPU
+    fp32 stays fp32 (TF32 off), as the numpy path computes."""
+    from emotts_torch.train.rank_trainer import resolve_device
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def _keep_mask(shape, rate: float, generator: torch.Generator,
+               device) -> torch.Tensor:
+    """One dropout site's keep mask: True with probability ``1 − rate``,
+    drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def _embed(table, ids):
+    """``table[ids]`` as a one-hot product: the same values, and a backward
+    that is a product too.  Indexing's backward adds the rows of repeated
+    ids with a serial kernel on a GPU (9.3 of a step's 35.9 device ms at the
+    bundled size, ``PERF.md`` §6, PR 13); ``F.embedding``'s is as fast but
+    not bit-reproducible from run to run."""
+    return F.one_hot(ids.long(), table.shape[0]).to(table.dtype) @ table
+
+
+def _ln_t(x, g, b):
+    """The numpy path's ``_ln``: biased variance, ``_EPS`` inside the root."""
+    return F.layer_norm(x, x.shape[-1:], g, b, _EPS)
+
+
+def g2p_forward(p: Mapping[str, torch.Tensor], char_ids: torch.Tensor,
+                phon_in: torch.Tensor, n_heads: int = N_HEADS, *,
+                dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Teacher-forced logits, batched: char_ids (B, Tw), phon_in (B, Tp)
+    (BOS-shifted) → (B, Tp, N_PHON_TOKENS).  Counterpart of
+    ``emotts/text/neural_g2p.py::jax_forward`` over a dict of tensors of the
+    flat weight layout: pre-LN encoder and decoder (LayerNorm with biased
+    variance, as the mirror's), the additive −1e9 mask
+    of padded characters in the encoder's self-attention and the decoder's
+    cross-attention, a causal mask on the decoder's self-attention.
+
+    Dropout (``dropout_rate`` > 0 and a ``generator``) sits at the mirror's
+    seven sites — both embeddings, the attention probabilities, each
+    attention output and the FFN's GELU output and output before their
+    residual adds — and scales kept entries by ``1 / (1 − rate)``.  The masks
+    come from ``generator``; their bits are not ``jax.random``'s."""
+    arch = arch_of(p, n_heads)
+    d_model = arch["d_model"]
+    dh = d_model // n_heads
+    dropping = dropout_rate > 0.0 and generator is not None
+
+    def drop(x):
+        if not dropping:
+            return x
+        keep = _keep_mask(x.shape, dropout_rate, generator, x.device)
+        return torch.where(keep, x / (1.0 - dropout_rate), 0.0)
+
+    def attn(q_x, kv_x, pre, mask):
+        b, tq, tk = q_x.shape[0], q_x.shape[1], kv_x.shape[1]
+        q = (q_x @ p[pre + "wq"]).view(b, tq, n_heads, dh).transpose(1, 2)
+        k = (kv_x @ p[pre + "wk"]).view(b, tk, n_heads, dh).transpose(1, 2)
+        v = (kv_x @ p[pre + "wv"]).view(b, tk, n_heads, dh).transpose(1, 2)
+        s = q @ k.transpose(-1, -2) / math.sqrt(dh)
+        a = drop(torch.softmax(s + mask, dim=-1))
+        o = (a @ v).transpose(1, 2).reshape(b, tq, d_model)
+        return o @ p[pre + "wo"]
+
+    def ffn(x, pre):
+        h = drop(F.gelu(x @ p[pre + "ff1"], approximate="none"))
+        return h @ p[pre + "ff2"]
+
+    char_pad = torch.where(char_ids == CHAR_PAD, -1e9, 0.0).to(
+        p["char_emb"].dtype)[:, None, None, :]
+    tw = char_ids.shape[1]
+    x = drop(_embed(p["char_emb"], char_ids) + p["char_pos"][:tw])
+    for i in range(arch["n_enc"]):
+        pre = f"enc{i}_"
+        h = _ln_t(x, p[pre + "ln1_g"], p[pre + "ln1_b"])
+        x = x + drop(attn(h, h, pre + "attn_", char_pad))
+        h = _ln_t(x, p[pre + "ln2_g"], p[pre + "ln2_b"])
+        x = x + drop(ffn(h, pre))
+    enc = _ln_t(x, p["enc_ln_g"], p["enc_ln_b"])
+
+    tp = phon_in.shape[1]
+    causal = torch.triu(torch.full((tp, tp), -1e9, dtype=enc.dtype,
+                                   device=enc.device), diagonal=1)
+    y = drop(_embed(p["phon_emb"], phon_in) + p["phon_pos"][:tp])
+    for i in range(arch["n_dec"]):
+        pre = f"dec{i}_"
+        h = _ln_t(y, p[pre + "ln1_g"], p[pre + "ln1_b"])
+        y = y + drop(attn(h, h, pre + "self_", causal))
+        h = _ln_t(y, p[pre + "ln2_g"], p[pre + "ln2_b"])
+        y = y + drop(attn(h, enc, pre + "cross_", char_pad))
+        h = _ln_t(y, p[pre + "ln3_g"], p[pre + "ln3_b"])
+        y = y + drop(ffn(h, pre))
+    y = _ln_t(y, p["dec_ln_g"], p["dec_ln_b"])
+    return y @ p["out_proj"]
+
+
+class G2PTransformer(nn.Module):
+    """The G2P transformer as a module for training: its parameters, in
+    ``params``, are keyed by the flat weight names of ``g2p_weights.npz``
+    (``char_emb``, ``enc0_attn_wq``, …), so weights cross between the two
+    by name alone (:meth:`from_flat`, :meth:`to_flat`).  Depth and widths
+    follow the weights (``arch_of``); ``n_heads`` is the file's
+    ``__n_heads__``."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor], n_heads: int = N_HEADS):
+        super().__init__()
+        self.params = nn.ParameterDict(
+            {k: nn.Parameter(v) for k, v in params.items()})
+        self.n_heads = int(n_heads)
+
+    @classmethod
+    def from_flat(cls, p: Mapping[str, np.ndarray], n_heads: int = N_HEADS,
+                  device="cuda") -> "G2PTransformer":
+        device = g2p_device(device)
+        return cls({k: torch.tensor(np.asarray(v, np.float32), device=device)
+                    for k, v in p.items()}, n_heads)
+
+    def to_flat(self) -> Dict[str, np.ndarray]:
+        """The weights as a flat dict of fp32 numpy arrays (copies)."""
+        return {k: v.detach().cpu().numpy().astype(np.float32, copy=True)
+                for k, v in self.params.items()}
+
+    def forward(self, char_ids: torch.Tensor, phon_in: torch.Tensor, *,
+                dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return g2p_forward(self.params, char_ids, phon_in, self.n_heads,
+                           dropout_rate=dropout_rate, generator=generator)
+
+
+def _greedy_block(members: Sequence[Mapping[str, torch.Tensor]],
+                  heads: Sequence[int], chars: torch.Tensor) -> torch.Tensor:
+    """(B, MAX_PHON_LEN − 1) greedy ids for one block of words."""
+    b = chars.shape[0]
+    dec_in = torch.zeros((b, MAX_PHON_LEN), dtype=torch.long, device=chars.device)
+    dec_in[:, 0] = PHON_BOS
+    for t in range(MAX_PHON_LEN - 1):
+        if len(members) == 1:
+            # argmax of one log-softmax == argmax of its logits
+            scores = g2p_forward(members[0], chars, dec_in, heads[0])[:, t]
+        else:
+            scores = sum(
+                torch.log_softmax(g2p_forward(m, chars, dec_in, h)[:, t], dim=-1)
+                for m, h in zip(members, heads))
+        nxt = scores.argmax(-1)
+        prev = dec_in[:, t]
+        dead = (prev == PHON_EOS) | (prev == PHON_PAD)
+        dec_in[:, t + 1] = torch.where(dead, PHON_PAD, nxt)
+    return dec_in[:, 1:]
+
+
+def batched_greedy_decode(
+    members: Union[Mapping, Sequence[Mapping]],
+    char_ids: np.ndarray,
+    n_heads=None,
+    *,
+    device="cuda",
+    chunk: int = 512,
+) -> np.ndarray:
+    """Batched greedy decode on ``device`` (eval tooling); counterpart of
+    ``emotts/text/neural_g2p.py::jax_batched_greedy_decode``.
+
+    ``members`` is one weight dict or a list of them (an ensemble: the argmax
+    of the summed per-step log-softmaxes, as ``np_ensemble_greedy_decode``);
+    ``n_heads`` one head count or one per member.  ``char_ids`` is
+    (B, MAX_WORD_LEN).  Returns (B, MAX_PHON_LEN − 1) int32 ids with an
+    EOS-then-PAD tail, ready for ``decode_phoneme_ids`` row by row.
+
+    Each step re-runs the full teacher-forced forward on the growing prefix,
+    as the JAX mirror does; a row whose previous token is EOS or PAD emits
+    PAD.  Words go in chunks of ``min(B, chunk)``, the tail padded up and cut
+    back.  The members' weights move to the device once per call."""
+    device = g2p_device(device)
+    if isinstance(members, Mapping):
+        members = [members]
+    heads = list(n_heads) if isinstance(n_heads, (list, tuple)) else (
+        [n_heads or N_HEADS] * len(members))
+    chars_np = np.asarray(char_ids, np.int64)
+    n = chars_np.shape[0]
+    if n == 0:
+        return np.zeros((0, MAX_PHON_LEN - 1), np.int32)
+    size = min(n, chunk)
+    outs = []
+    with torch.inference_mode():
+        dev_members = [{k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                        for k, v in m.items()} for m in members]
+        chars = torch.from_numpy(chars_np).to(device)
+        for i in range(0, n, size):
+            block = chars[i:i + size]
+            pad = size - block.shape[0]
+            if pad:
+                block = F.pad(block, (0, 0, 0, pad))
+            res = _greedy_block(dev_members, heads, block)
+            outs.append(res[:size - pad].cpu().numpy())
+    return np.concatenate(outs, axis=0).astype(np.int32)
 
 
 def init_params(seed: int = 0, d_model: int = D_MODEL, d_ff: int = D_FF,

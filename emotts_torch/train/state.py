@@ -13,7 +13,7 @@ its slices (``parallel.tp``).
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -44,19 +44,24 @@ class AdamW(torch.optim.Optimizer):
     ``lr_decay_every`` > 0 decays the learning rate in steps, as
     ``optax.exponential_decay(lr, lr_decay_every, lr_decay, staircase=True)``:
     an update uses :func:`staircase_lr` of the number of updates before it
-    (the first uses ``lr``).  Weight decay applies to every parameter given,
-    biases included.
+    (the first uses ``lr``).  ``lr_schedule``, where given, is the learning
+    rate as a function of that same count (optax's schedule argument, e.g.
+    :func:`warmup_cosine_lr`), in place of ``lr``.  Weight decay applies to
+    every parameter given, biases included.
     """
 
     def __init__(self, params: Iterable, lr: float, weight_decay: float = 1e-2,
                  betas=(0.9, 0.999), eps: float = 1e-8,
                  moment_dtype: torch.dtype = torch.float32,
-                 lr_decay_every: int = 0, lr_decay: float = 1.0):
+                 lr_decay_every: int = 0, lr_decay: float = 1.0,
+                 lr_schedule: Optional[Callable[[int], float]] = None):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
                                       betas=betas, eps=eps,
                                       lr_decay_every=lr_decay_every,
                                       lr_decay=lr_decay))
         self.moment_dtype = moment_dtype
+        # an attribute, not a group entry: state_dict() stays picklable
+        self.lr_schedule = lr_schedule
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -92,7 +97,9 @@ class AdamW(torch.optim.Optimizer):
             torch._foreach_div_(u, denom)
             torch._foreach_add_(u, params, alpha=group["weight_decay"])
             lr = group["lr"]
-            if group["lr_decay_every"] > 0:
+            if self.lr_schedule is not None:
+                lr = self.lr_schedule(count - 1)
+            elif group["lr_decay_every"] > 0:
                 lr = staircase_lr(lr, group["lr_decay"], group["lr_decay_every"],
                                   count - 1)
             torch._foreach_add_(params, u, alpha=-lr)
@@ -107,6 +114,23 @@ def staircase_lr(lr: float, decay: float, every: int, n: int) -> float:
     is not)."""
     power = np.float64(np.float32(decay)) ** (n // every)
     return float(np.float32(lr) * np.float32(power))
+
+
+def warmup_cosine_lr(n: int, peak: float, warmup: int, decay_steps: int,
+                     init: float = 0.0, end: float = 0.0) -> float:
+    """``optax.warmup_cosine_decay_schedule(init, peak, warmup, decay_steps,
+    end)`` at update count ``n``, in fp32 in optax's order of operations: a
+    linear ramp from ``init`` to ``peak`` over ``warmup`` updates (none where
+    ``warmup`` is 0), then a cosine from ``peak`` to ``end`` over the
+    remaining ``decay_steps − warmup``, held at ``end`` after."""
+    f32 = np.float32
+    if n < warmup:
+        frac = f32(1) - f32(max(n, 0)) / f32(warmup)
+        return float(f32(init - peak) * frac + f32(peak))
+    alpha = 0.0 if peak == 0.0 else end / peak
+    count = min(f32(n - warmup), f32(decay_steps - warmup))
+    cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * count / f32(decay_steps - warmup)))
+    return float(f32(peak) * (f32(1 - alpha) * cosine + f32(alpha)))
 
 
 def moment_dtype_of(cfg: TrainConfig) -> torch.dtype:

@@ -1,5 +1,6 @@
 """The port stands on its own: no module under emotts_torch/, and not
-chip_smoke.py, imports jax, flax, optax, orbax or the JAX package."""
+chip_smoke.py or the port's tools, imports jax, flax, optax, orbax or the
+JAX package."""
 
 import ast
 import subprocess
@@ -10,7 +11,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "emotts"}
-SOURCES = sorted((ROOT / "emotts_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "emotts_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    ROOT / "tools" / "chip_data_parallel.py",
+    ROOT / "tools" / "chip_g2p.py",
+    ROOT / "tools" / "chip_tensor_parallel.py",
+    ROOT / "tools" / "profile_g2p_step.py",
+    ROOT / "tools" / "train_g2p_torch.py",
+]
 
 
 def _imported_roots(path: Path):
@@ -45,7 +53,9 @@ def test_there_are_sources_to_check():
                    "emotts_torch/eval/evaluate.py", "emotts_torch/eval/intensity_eval.py",
                    "emotts_torch/eval/metrics.py", "emotts_torch/nn/hifigan_disc.py",
                    "emotts_torch/losses/gan.py", "emotts_torch/train/vocoder_trainer.py",
-                   "emotts_torch/cli/main.py", "emotts_torch/utils/plotting.py"):
+                   "emotts_torch/cli/main.py", "emotts_torch/utils/plotting.py",
+                   "emotts_torch/text/g2p_train.py", "tools/train_g2p_torch.py",
+                   "tools/chip_data_parallel.py", "tools/chip_tensor_parallel.py"):
         assert needed in names
 
 

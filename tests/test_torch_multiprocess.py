@@ -29,6 +29,7 @@ from emotts.parallel.mesh import shard_batch as jax_shard_batch
 from emotts.train.fs2_trainer import FS2Trainer as JaxFS2Trainer
 from emotts.utils.config import load_config as jax_load_config
 from emotts.utils.config import save_config
+from emotts_torch.audio import mel as mel_module
 from emotts_torch.nn.convert import fs2_from_flax, rank_from_flax
 from emotts_torch.nn.init import seeded_init_
 from emotts_torch.train.fs2_trainer import (FS2Trainer, build_intensity_extractor,
@@ -48,6 +49,9 @@ STEPS = 3
 # the order of its sums (tests/test_multiprocess.py holds the JAX package
 # to the same rtol)
 RTOL = 1e-5
+# an fp32 sum of n terms against its float64 value, as a fraction of
+# Σ|term|: a few roundings of log2(n) cascaded adds, and of each term's own
+FP32_SUM = 1e-6
 
 
 def _tiny(cfg, dropout=True):
@@ -176,20 +180,27 @@ def _assert_close_losses(got, want, rtol=RTOL):
                                        err_msg=key)
 
 
-def _assert_close_grads(got, want, rel=1e-4, zero=1e-6):
+def _assert_close_grads(got, want, rel=1e-4, zero=1e-6, terms=None):
     """Each gradient within ``rel`` of its own largest entry.  A gradient
     that is zero in exact arithmetic holds rounding noise alone — a key
     projection's bias (softmax does not see a constant added to every logit
     of a row), a conv bias under BatchNorm in training (the batch mean takes
     it out): where the reference's largest entry is below ``zero`` of the
-    model's largest, both sides must be."""
+    model's largest, both sides must be.  ``terms`` maps a gradient that is
+    one heavily cancelled sum to Σ|term| over what it sums: that entry is
+    held within ``rel`` of Σ|term|, the size its fp32 rounding scales with,
+    instead of ``rel`` of the sum."""
     assert set(got) == set(want)
+    terms = terms or {}
     top = max(float(np.abs(np.asarray(w)).max()) for w in want.values())
     bad = {}
     for name, w in want.items():
         g = np.abs(np.asarray(got[name], np.float64))
         w = np.asarray(w, np.float64)
-        if np.abs(w).max() < zero * top:
+        if name in terms:
+            err = np.abs(np.asarray(got[name], np.float64) - w).max() / (
+                rel * terms[name])
+        elif np.abs(w).max() < zero * top:
             err = g.max() / (zero * top)
         else:
             err = np.abs(np.asarray(got[name], np.float64) - w).max() / (
@@ -292,20 +303,71 @@ def test_fs2_two_processes_match_the_jax_trainer_on_eight_devices(corpus, two):
                                        if k in run["grads"]})
 
 
-def test_vocoder_trainer_two_processes_equal_one(corpus, two):
+def _output_bias_terms(gen):
+    """Records ∂L/∂z at every (row, sample) of the generator's pre-tanh
+    output z: the terms whose sum is ``conv_post_bias``'s gradient."""
+    terms = []
+
+    def hook(module, inputs, out):
+        out.register_hook(lambda g: terms.append(g * (1.0 - out.detach() ** 2)))
+
+    return terms, gen.register_forward_hook(hook)
+
+
+def _float64_step(cfg, y, monkeypatch):
+    """The same GAN step in float64 on the CPU (weights, mel constants,
+    losses and AdamW), a reference free of fp32 rounding; the trainer."""
+    one = seeded(lambda: VocoderTrainer(cfg, device="cpu"))
+    one.gen.double()
+    one.disc.double()
+    for module in one.disc.modules():
+        if isinstance(getattr(module, "dtype", None), torch.dtype):
+            module.dtype = torch.float64
+    one.dtype = torch.float64
+    for state in (one.state.gen, one.state.disc):
+        state.optimizer.moment_dtype = torch.float64
+    with monkeypatch.context() as m:
+        as_float = torch.Tensor.float
+        m.setattr(torch.Tensor, "float", lambda t, *a, **k: (
+            t if t.dtype == torch.float64 else as_float(t, *a, **k)))
+        constants = mel_module._device_constants
+        m.setattr(mel_module, "_device_constants",
+                  lambda c, d: tuple(t.double() for t in constants(c, d)))
+        one.train_step({"y": y.astype(np.float64)})
+    return one
+
+
+def test_vocoder_trainer_two_processes_equal_one(corpus, two, monkeypatch):
     """Lockstep over 2 GAN steps; step 1 equals one process fed both
-    ranks' batches, concatenated (the global batch is batch_size × W)."""
+    ranks' batches, concatenated (the global batch is batch_size × W).
+
+    The generator's output bias gradient sums ∂L/∂z over every sample of
+    the batch (8192 terms here) and cancels about 56,000-fold: the conv
+    kernels the CPU's instruction set selects move each fp32 side by up to
+    5e-4 of that sum, within 1e-8 of Σ|∂L/∂z|.  It is held to the float64
+    step within FP32_SUM of Σ|∂L/∂z| on both sides, and the two sides to
+    each other within ``rel`` of Σ|∂L/∂z|."""
     _, paths, _, _ = corpus
     runs = [r["vocoder"] for r in two]
     _assert_lockstep(runs)
     assert not np.array_equal(runs[0]["y"], runs[1]["y"])  # own utterances
+    y = np.concatenate([runs[0]["y"], runs[1]["y"]])
     one = seeded(lambda: VocoderTrainer(load_config(paths["cfg"]), device="cpu"))
-    metrics = one.train_step({"y": np.concatenate([runs[0]["y"], runs[1]["y"]])})
+    terms, hook = _output_bias_terms(one.gen)
+    metrics = one.train_step({"y": y})
+    hook.remove()
+    total = float(terms[0].abs().double().sum())
+    exact = float(_float64_step(load_config(paths["cfg"]), y, monkeypatch)
+                  .gen.conv_post_bias.grad)
+    for got in [one.gen.conv_post_bias.grad] + [
+            r["grads"]["gen"]["conv_post_bias"] for r in runs]:
+        assert abs(float(got) - exact) <= FP32_SUM * total, (float(got), exact, total)
     _assert_close_losses(runs[0]["losses"][:1], [metrics])
     for part, model in (("gen", one.gen), ("disc", one.disc)):
         _assert_close_grads(runs[0]["grads"][part],
                             {n: p.grad for n, p in model.named_parameters()
-                             if p.grad is not None})
+                             if p.grad is not None},
+                            terms={"conv_post_bias": total} if part == "gen" else None)
 
 
 def test_command_under_the_launcher_writes_one_experiment(corpus, tmp_path):
