@@ -19,9 +19,10 @@ a non-zero exit:
               its device time, launches queued behind a sleep kernel, beside
               the wall time, the operations its design does and the tensor
               rate they imply; SDPA's backward timed straight),
-              MRF stage, ResBlock (on the tensor cores, 3xTF32 for fp32;
-              each case with its tiles and launches, the operations its
-              design does and the tensor rate that implies)
+              MRF stage, ResBlock (wgmma TF32, 3xTF32 for fp32; each case
+              with its tiles and launches, the design's name, the ring's
+              depth, the wrapper's packing of the weights timed alone, the
+              operations the design does and the tensor rate that implies)
  4. serve     the full-width model behind the HTTP server: /health, a cold
               and three warm /synthesize, one /batch
  5. sweep     Synthesizer.intensity_sweep, 60 utterances in one batch
@@ -582,16 +583,32 @@ def _as_designed(b, t, c, chains, split, algorithm_ops, ms):
     ``chains`` is [(kernel size, dilations, tile), ...], one per chain a tile
     runs (csrc/resblock_common.cuh::resblock_chain); ``split`` is the tensor
     products a term (3 for 3xTF32, 1 for one TF32 product).  halo_ratio:
-    rows computed per row kept, weighted by taps; operations_as_designed:
+    rows computed per row kept, weighted by taps, each conv in the whole m64
+    tiles the core computes (chain_cost to M_TILE); operations_as_designed:
     split x halo_ratio x algorithm operations; tensor_tflops: what those
     take per second at the kernel's time."""
-    from emotts_torch.ops.resblock import chain_rows
+    from emotts_torch.ops.resblock import M_TILE, chain_cost
 
-    rows = sum(-(-t // tile) * chain_rows(k, dil, tile) for k, dil, tile in chains)
+    rows = sum(-(-t // tile) * chain_cost(k, dil, tile, M_TILE) for k, dil, tile in chains)
     ops = 2 * b * rows * c * c * split
     return dict(halo_ratio=ops / split / algorithm_ops, split=split,
                 operations=algorithm_ops, operations_as_designed=ops,
                 tensor_tflops=ops / (ms * 1e-3) / 1e12)
+
+
+# the vocoder kernels' conv core (csrc/resblock_common.cuh)
+VOCODER_DESIGN = ("wgmma.m64nNk8 TF32, A from registers, B packed by the wrapper "
+                  "(pack_weights) through a bulk-copy ring on mbarriers")
+
+
+def _packing(R, weights, parts, dtype, c):
+    """The design's fields of a vocoder case: its name, the ring's depth, and
+    the wrapper's packing of the case's weights (``weights``: the conv
+    weight tensors it packs, in ``parts`` parts) timed alone."""
+    def pack():
+        return [R.pack_weights(w.to(dtype), parts) for w in weights]
+    return dict(design=VOCODER_DESIGN, ring_stages=R.ring_stages(c), weight_parts=parts,
+                pack_ms=time_ms(pack, 5))
 
 
 def check_resblock(gen, dev, frames, batch):
@@ -611,61 +628,75 @@ def check_resblock(gen, dev, frames, batch):
             want = R.fused_resblock1_plain(x, *w, dil)
             err, rel = compare(got, want, **TOL[dtype])
             ms = time_ms(lambda: R.fused_resblock1(x, *w, dil), 2)
+            dev_ms = device_ms(lambda: R.fused_resblock1(x, *w, dil), 3)
             plain_ms = time_ms(lambda: R.fused_resblock1_plain(x, *w, dil), 2)
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
             nbytes = 2 * x.numel() * x.element_size() + sum(a.numel() * 4 for a in w)
             ops = _chain_ops(rows, t, c, (k,))
             bound_ms, by = bound(ops, peak, nbytes)
-            plan = [(first, last, min(tile, -(-t // 8) * 8))
-                    for first, last, tile in R.launch_plan(c, k, dil)]
+            plan = [(first, last, min(tile, -(-t // 8) * 8)) for first, last, tile
+                    in R.launch_plan(c, k, dil, rows, t, R.device_sms(dev.index or 0))]
             cases.append(dict(
                 dtype=str(dtype).split(".")[1], shape=[rows, t, c], k=k,
                 cuda_launches=len(plan), tiles=[p[2] for p in plan],
                 max_abs_err=err, max_rel_err=rel, tolerance=TOL[dtype], ms=ms,
-                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=by,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=by,
                 # 3xTF32 in both instances: the residual is an fp32 sum
                 **_as_designed(rows, t, c, [(k, dil[a:b], tile) for a, b, tile in plan],
                                3, ops, ms),
+                **_packing(R, (w[0], w[2]), 2, torch.float32, c),
             ))
     return cases
 
 
 def check_mrf(gen, dev, frames, batch):
     from emotts_torch.ops import mrf as M
+    from emotts_torch.ops import resblock as R
 
     cases = []
-    ks, dil = (3, 7, 11), (1, 3, 5)
+    v1 = (3, 7, 11), (1, 3, 5)  # the generator's kernel sizes and dilations
     for dtype in (torch.float32, torch.bfloat16):
-        # the main path's three stages, then short sequences whose lengths
-        # are a multiple of no tile (edge masks, ragged last tile)
-        for c, rows, t in ((128, batch, 64 * frames), (64, batch, 128 * frames),
-                            (32, batch, 256 * frames), (128, 2, 777), (32, 3, 333)):
+        # the main path's three stages (C = 128 and 64 one launch per
+        # dilation step of each ResBlock, C = 32 one launch: launch_plan),
+        # then short sequences whose lengths are a multiple of no tile (edge
+        # masks, ragged last tile; one launch of short tiles), then a stage
+        # of two ResBlocks and two dilations
+        for c, rows, t, (ks, dil) in (
+                (128, batch, 64 * frames, v1), (64, batch, 128 * frames, v1),
+                (32, batch, 256 * frames, v1), (128, 2, 777, v1), (32, 3, 333, v1),
+                (64, 2, 1000, ((3, 5), (1, 2)))):
             x = torch.randn(rows, t, c, generator=gen).to(dev, dtype)
-            params = [_block_weights(gen, dev, c, k) for k in ks]
+            params = [_block_weights(gen, dev, c, k, len(dil)) for k in ks]
             got = M.fused_mrf_stage(x, params, ks, dil)
             torch.cuda.synchronize()
             want = M.fused_mrf_stage_plain(x, params, ks, dil)
             err, rel = compare(got, want, **TOL[dtype])
             del got, want
-            ms = time_ms(lambda: M.fused_mrf_stage(x, params, ks), 2)
-            plain_ms = time_ms(lambda: M.fused_mrf_stage_plain(x, params, ks), 2)
+            ms = time_ms(lambda: M.fused_mrf_stage(x, params, ks, dil), 2)
+            dev_ms = device_ms(lambda: M.fused_mrf_stage(x, params, ks, dil), 3)
+            plain_ms = time_ms(lambda: M.fused_mrf_stage_plain(x, params, ks, dil), 2)
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
             nbytes = (2 * x.numel() * x.element_size()
                       + sum(a.numel() * 4 for blk in params for a in blk))
-            ops = _chain_ops(rows, t, c, ks)
+            ops = _chain_ops(rows, t, c, ks, len(dil))
             bound_ms, by = bound(ops, peak, nbytes)
-            plan = [(rb, j, min(tile, -(-t // 8) * 8))
-                    for rb, j, tile in M.launch_plan(c, ks, dil)]
+            parts = 1 if dtype == torch.bfloat16 else 2
+            plan = [(rb, j, min(tile, -(-t // 8) * 8)) for rb, j, tile
+                    in M.launch_plan(c, ks, dil, parts, rows, t, R.device_sms(dev.index or 0))]
             chains = ([(k, dil, plan[0][2]) for k in ks] if plan[0][0] is None
                       else [(ks[rb], (dil[j],), tile) for rb, j, tile in plan])
             cases.append(dict(
-                dtype=str(dtype).split(".")[1], shape=[rows, t, c],
-                cuda_launches=len(plan), tiles=[p[2] for p in plan],
+                dtype=str(dtype).split(".")[1], shape=[rows, t, c], kernel_sizes=ks,
+                dilations=dil, cuda_launches=len(plan), tiles=[p[2] for p in plan],
                 max_abs_err=err, max_rel_err=rel, tolerance=TOL[dtype], ms=ms,
-                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=by,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=by,
                 # bf16: operands exact in bf16, one TF32 product a term
                 **_as_designed(rows, t, c, chains,
                                1 if dtype == torch.bfloat16 else 3, ops, ms),
+                **_packing(R, [blk[i] for blk in params for i in (0, 2)],
+                           1 if dtype == torch.bfloat16 else 2, dtype, c),
             ))
             del x, params
             torch.cuda.empty_cache()
@@ -728,10 +759,13 @@ def seeded_weights(cfg):
 
 
 class ForwardCounter:
-    """Counts forwards of the two models, to say how many launches to expect."""
+    """Counts forwards of the two models, to say how many launches to expect;
+    ``launched`` lists each generator forward's (MRF, ResBlock) launches
+    (vocoder_launches: they follow the mel's shape)."""
 
     def __init__(self, synth):
         self.fs2 = self.vocoder = 0
+        self.launched = []
         self._hooks = [
             synth.model.register_forward_hook(self._count("fs2")),
             synth.vocoder.register_forward_hook(self._count("vocoder")),
@@ -740,6 +774,8 @@ class ForwardCounter:
     def _count(self, name):
         def hook(module, args, output):
             setattr(self, name, getattr(self, name) + 1)
+            if name == "vocoder":
+                self.launched.append(vocoder_launches(module, *args))
         return hook
 
     def close(self):
@@ -988,8 +1024,9 @@ class ModuleCounter:
     keyword or position), each followed by one backward in a train step.
     ``fp32_forwards`` and ``fp32_training_forwards`` count those of modules
     that compute in fp32, whose attention takes the kernels' fp32 instances.
-    With ``launches``, ``launched`` lists ``launches(module)`` of every
-    forward (a generator's MRF and ResBlock launches by its structure)."""
+    With ``launches``, ``launched`` lists ``launches(module, *args)`` of
+    every forward (a generator's MRF and ResBlock launches by its structure
+    and its input's shape)."""
 
     def __init__(self, cls, launches=None):
         self.forwards = self.training_forwards = 0
@@ -1007,7 +1044,7 @@ class ModuleCounter:
                 self.fp32_forwards += fp32
                 self.fp32_training_forwards += fp32 and training
                 if launches is not None:
-                    self.launched.append(launches(module))
+                    self.launched.append(launches(module, *args, **kwargs))
 
         self._hook = torch.nn.modules.module.register_module_forward_hook(
             hook, with_kwargs=True)
@@ -1561,23 +1598,39 @@ def fs2_parity_phase(root, rank_exp, dev):
 STREAM_CHUNK = 32  # mel frames a chunk: 512 ms of audio
 
 
-def vocoder_launches(gen):
-    """(MRF, ResBlock) CUDA launches of one forward of ``gen``, from its
-    structure: a stage the MRF kernel takes launches its plan, the others
-    launch each ResBlock's plan."""
+def vocoder_launches(gen, mel):
+    """(MRF, ResBlock) CUDA launches of one forward of ``gen`` on ``mel``
+    (B, frames, n_mels), from its structure: a stage the MRF kernel takes
+    launches its plan, the others launch each ResBlock's plan, each plan
+    for the stage's rows and length on the mel's card (launch_plan)."""
     from emotts_torch.ops import mrf, resblock
 
+    rows, t = mel.shape[0], mel.shape[1]
+    sms = (resblock.device_sms(mel.device.index) if mel.device.type == "cuda"
+           else resblock.SMS)
+    # the reference's type promotion: x takes the first conv's bias's type
+    bf16 = torch.promote_types(mel.dtype, gen.conv_pre_bias.dtype) == torch.bfloat16
     ch = gen.conv_pre_kernel.shape[2]
     per_mrf = per_resblock = 0
-    for _ in gen.upsample_rates:
+    for u in gen.upsample_rates:
         ch //= 2
+        t *= u
         if gen._stage_is_fused(ch):
             per_mrf += len(mrf.launch_plan(ch, gen.resblock_kernel_sizes,
-                                           gen.resblock_dilations[0]))
+                                           gen.resblock_dilations[0], 1 if bf16 else 2,
+                                           rows, t, sms))
         elif gen.use_pallas_resblocks:
-            per_resblock += sum(len(resblock.launch_plan(ch, k, d)) for k, d in zip(
-                gen.resblock_kernel_sizes, gen.resblock_dilations))
+            per_resblock += sum(len(resblock.launch_plan(ch, k, d, rows, t, sms))
+                                for k, d in zip(gen.resblock_kernel_sizes,
+                                                gen.resblock_dilations))
     return per_mrf, per_resblock
+
+
+def launches_by_forward(launched):
+    """The (MRF, ResBlock) launches of the generator forwards ``launched``
+    (vocoder_launches of each) in all, and the distinct counts a forward."""
+    return (sum(m for m, _ in launched), sum(r for _, r in launched),
+            sorted(set(launched)))
 
 
 def stream_phase(root, fs2_exp, rank_exp, voc_sd, dev):
@@ -1675,12 +1728,11 @@ def stream_phase(root, fs2_exp, rank_exp, voc_sd, dev):
     launches = dict(fused_attention=attention.launch_count,
                     fused_mrf_stage=mrf.launch_count,
                     fused_resblock1=resblock.launch_count)
-    per_mrf, per_resblock = vocoder_launches(synth.vocoder)
+    n_mrf, n_resblock, _ = launches_by_forward(counter.launched)
     expected = dict(
         fused_attention=(cfg.fastspeech2.enc_num_layers
                          + cfg.fastspeech2.dec_num_layers) * counter.fs2,
-        fused_mrf_stage=per_mrf * counter.vocoder,
-        fused_resblock1=per_resblock * counter.vocoder)
+        fused_mrf_stage=n_mrf, fused_resblock1=n_resblock)
     if launches != expected or min(launches.values()) == 0:
         raise AssertionError(f"streamed request's launches {launches}, "
                              f"expected {expected}")
@@ -2010,7 +2062,7 @@ def evaluate_phase(cfg, fs2_exp, rank_exp, dev):
     zero_counts(attention, mrf, resblock)
     counters = dict(fs2=ModuleCounter(FastSpeech2),
                     extractor=ModuleCounter(IntensityExtractor),
-                    generator=ModuleCounter(HiFiGANGenerator))
+                    generator=ModuleCounter(HiFiGANGenerator, launches=vocoder_launches))
     t0 = time.perf_counter()
     ev = Evaluator(cfg, fs2_exp, rank_exp, vocoder_params=maybe_load_vocoder(cfg),
                    device=dev)
@@ -2067,12 +2119,11 @@ def evaluate_phase(cfg, fs2_exp, rank_exp, dev):
                              f"utterances from {written['feature_path']}")
 
     f2 = cfg.fastspeech2
-    per_mrf, per_resblock = vocoder_launches(ev.vocoder)
+    n_mrf, n_resblock, by_forward = launches_by_forward(counters["generator"].launched)
     expected = dict(
         fused_attention=(f2.enc_num_layers + f2.dec_num_layers) * forwards["fs2"]
         + cfg.rank_model.n_encoder_layers * forwards["extractor"],
-        fused_mrf_stage=per_mrf * forwards["generator"],
-        fused_resblock1=per_resblock * forwards["generator"])
+        fused_mrf_stage=n_mrf, fused_resblock1=n_resblock)
     if launches != expected or min(launches.values()) == 0:
         raise AssertionError(f"evaluation launches {launches}, expected {expected}")
     # the evaluator's and the scorer's models are fp32, the sweep's
@@ -2113,8 +2164,7 @@ def evaluate_phase(cfg, fs2_exp, rank_exp, dev):
             verdict=written["verdict"]),
         launches=dict(counted=launches, expected=expected, forwards=forwards,
                       fp32=fp32, fp32_forwards=fp32_forwards,
-                      mrf_launches_per_generator_forward=per_mrf,
-                      resblock_launches_per_generator_forward=per_resblock),
+                      mrf_and_resblock_launches_by_generator_forward=by_forward),
         kernels_vs_plain=dict(
             frames=int(batch["mel"].shape[1]), rows=int(batch["mel"].shape[0]),
             teacher_forced_postnet_max_abs_err=tf_err,
@@ -2517,11 +2567,10 @@ def serve_trained_vocoder_phase(npz, fs2_exp, rank_exp, dev):
         frames.append(n)
     counter.close()
     launches = {k: v - before[k] for k, v in counts().items()}
-    per_mrf, per_resblock = vocoder_launches(synth.vocoder)
+    n_mrf, n_resblock, by_forward = launches_by_forward(counter.launched)
     f2 = cfg.fastspeech2
     expected = dict(fused_attention=(f2.enc_num_layers + f2.dec_num_layers) * counter.fs2,
-                    fused_mrf_stage=per_mrf * counter.vocoder,
-                    fused_resblock1=per_resblock * counter.vocoder)
+                    fused_mrf_stage=n_mrf, fused_resblock1=n_resblock)
     if dev.type == "cuda" and (launches != expected or min(launches.values()) == 0):
         raise AssertionError(f"serving the trained vocoder: launches {launches}, "
                              f"expected {expected}")
@@ -2534,8 +2583,7 @@ def serve_trained_vocoder_phase(npz, fs2_exp, rank_exp, dev):
         compared_frames=frames, max_pcm_steps_kernels_vs_plain=steps, limit_pcm_steps=8,
         launches=launches, expected=expected, fs2_forwards=counter.fs2,
         generator_forwards=counter.vocoder,
-        mrf_launches_per_generator_forward=per_mrf,
-        resblock_launches_per_generator_forward=per_resblock)
+        mrf_and_resblock_launches_by_generator_forward=by_forward)
 
 
 def vocoder_phases(root, fs2_exp, rank_exp, dev):
@@ -3351,13 +3399,13 @@ def dp_serving_phase(root, rank_exp, weights, dev):
         voc = sum(c.vocoder for c in counters)
         for c in counters:
             c.close()
-        per_mrf, per_resblock = vocoder_launches(synth.vocoder)
+        n_mrf, n_resblock, _ = launches_by_forward([n for c in counters for n in c.launched])
         f2 = cfg.fastspeech2
         counted = dict(fused_attention=attention.launch_count,
                        fused_mrf_stage=mrf.launch_count,
                        fused_resblock1=resblock.launch_count)
         expected = dict(fused_attention=(f2.enc_num_layers + f2.dec_num_layers) * fs2,
-                        fused_mrf_stage=per_mrf * voc, fused_resblock1=per_resblock * voc)
+                        fused_mrf_stage=n_mrf, fused_resblock1=n_resblock)
         if counted != expected or min(counted.values()) == 0:
             raise AssertionError(f"(c) {name}: launches {counted}, expected {expected}")
         out[name] = dict(wall_ms=sweeps[name]["wall_ms"], fs2_forwards=fs2,
@@ -4131,20 +4179,18 @@ def main():
     counter.close()
 
     f2 = cfg.fastspeech2
-    # V1: the MRF kernel takes the stages with C = 128, 64, 32 (C = 128 one
-    # launch per dilation step of each ResBlock); the C = 256 stage one
-    # ResBlock wrapper call per kernel size, k = 7 and 11 one CUDA launch per
-    # dilation step
-    per_vocode_mrf, per_vocode_resblock = vocoder_launches(synth.vocoder)
+    # V1: the MRF kernel takes the stages with C = 128, 64, 32; the C = 256
+    # stage one ResBlock wrapper call per kernel size; each wrapper call one
+    # CUDA launch or one per dilation step (of each ResBlock), as its
+    # launch_plan gives for the forward's rows and length
+    n_mrf, n_resblock, by_forward = launches_by_forward(counter.launched)
     expected = dict(
         fused_attention=(f2.enc_num_layers + f2.dec_num_layers) * counter.fs2,
-        fused_mrf_stage=per_vocode_mrf * counter.vocoder,
-        fused_resblock1=per_vocode_resblock * counter.vocoder,
+        fused_mrf_stage=n_mrf, fused_resblock1=n_resblock,
     )
     emit("launches", counted=launches, expected=expected,
          fs2_forwards=counter.fs2, generator_forwards=counter.vocoder,
-         resblock_cuda_launches_per_generator_forward=per_vocode_resblock,
-         mrf_cuda_launches_per_generator_forward=per_vocode_mrf)
+         mrf_and_resblock_cuda_launches_by_generator_forward=by_forward)
     if launches != expected or min(launches.values()) == 0:
         raise AssertionError(f"launch counters {launches}, expected {expected}")
     del synth

@@ -74,8 +74,9 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// TF32 on the tensor cores, shared by the vocoder's conv core
-// (resblock_common.cuh) and the fp32 attention kernels.  fp32 is emulated
+// TF32 on the tensor cores: the split (`split_tf32`) serves the vocoder's
+// conv core (resblock_common.cuh, products on wgmma) and the fp32 attention
+// kernels, `mma_tf32` the latter alone.  fp32 is emulated
 // with 3xTF32: v splits into hi = cvt.rna.tf32(v) and lo = cvt.rna.tf32(v - hi)
 // (both through cvt: the tensor cores ignore the low 13 bits of an
 // unconverted operand), and a_lo*b_hi + a_hi*b_lo + a_hi*b_hi is accumulated

@@ -15,22 +15,26 @@
 // What the TPU version does for its own hardware is dropped: polyphase
 // packing of narrow stages into 128 lanes, the 8-row halo rounding, the
 // double-buffered halo copy.  What is scarce here instead is shared memory.
-// At C = 64 and 32 window and intermediate leave room for a 272- or 512-row
-// tile beside the 60-row halo a side, and the whole stage is one launch
-// (`emotts_mrf_stage`, 1.16 and 1.09 rows computed per row kept).  At
-// C = 128 the tile would be 80 rows (1.55 rows per row kept, and 3xTF32
-// makes each computed row cost three products), so the stage runs as one
-// launch per (ResBlock, dilation step) instead (`emotts_mrf_step`), each
+// On a long sequence, at C = 32 window and intermediate leave room for a
+// 442-row tile beside the 60-row halo a side, and the whole stage is one
+// launch (`emotts_mrf_stage`, its passes covering 1.26 rows per row kept).
+// At C = 64 and 128 the tile would be 186 and 46 rows (1.50 and 3.27), and
+// 3xTF32 makes each computed row cost three products, so the stage runs as
+// one launch per (ResBlock, dilation step) instead (`emotts_mrf_step`), each
 // with the halo of its step only, the steps' fp32 results through device
-// memory (1.02 rows per row kept; 1.65x faster on an H100, PERF.md).  Which
-// one: emotts_torch/ops/mrf.py::launch_plan.
+// memory (1.03 and 1.06).  On a short one (a stream's window) the tiles are
+// cut short enough to give every SM a block, and the whole stage is one
+// launch.  Which one: emotts_torch/ops/mrf.py::launch_plan (the cost of the
+// steps' round trips measured on an H100, PERF.md).
 //
 // Bound on this card: 2*B*T*126*C^2 operations against 2*B*T*C*itemsize
 // bytes: operations.  The products run on the tensor cores through the conv
-// core of resblock_common.cuh: 3xTF32 for fp32 (three TF32 products a term),
-// one TF32 product a term for bf16, whose operands are exact in bf16 (the
-// reference's rounding points, `ROUND`; weights rounded by the caller).  What
-// holds it back from that bound: resblock_common.cuh.
+// core of resblock_common.cuh (`wgmma`, TF32, A from registers): 3xTF32 for
+// fp32 (three TF32 products a term), one TF32 product a term for bf16, whose
+// operands are exact in bf16 (the reference's rounding points, `ROUND`;
+// weights rounded by the caller).  The weights come packed for the core's
+// ring (ops/resblock.py::pack_weights).  What holds it back from that bound:
+// resblock_common.cuh.
 #include "resblock_common.cuh"
 
 namespace emotts {
@@ -57,10 +61,10 @@ template <typename T, int C>
 __device__ __forceinline__ void store_rows(const float* buf, int halo, int rows,
                                            size_t o0, int mode, float n,
                                            float* next, float* sum, T* out) {
-  for (int e = threadIdx.x; e < rows * C; e += kThreads) {
+  for (int e = threadIdx.x; e < rows * C; e += kConsumers) {
     const int i = e / C, c = e % C;
     const size_t o = o0 + (size_t)i * C + c;
-    const float v = buf[ConvGeom<C>::at(halo + i, c)];
+    const float v = buf[Rows<C>::at(halo + i, c)];
     if (mode & kToNext) {
       next[o] = v;
       continue;
@@ -73,16 +77,23 @@ __device__ __forceinline__ void store_rows(const float* buf, int halo, int rows,
   }
 }
 
-// The whole stage in one launch.
+// The whole stage in one launch.  The weights are packed (pack_weights):
+// one part with ROUND, else two.
 template <typename T, int C, bool ROUND>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
 mrf_stage_kernel(const T* __restrict__ x, T* out, float* sum, StageParams p,
                  DilationList dl, long long t_len, int tile, int halo, int zoff) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int n_rows = tile + 2 * halo;
-  float* ring = smem;
-  float* buf = smem + ring_floats(C);
-  float* z = buf + (size_t)n_rows * ConvGeom<C>::LDA;
+  Ring<C> ring;
+  float* buf;
+  if (!start_block<C>(smem, ring, buf, [&] {
+        for (int rb = 0; rb < p.n_rb; ++rb)
+          produce_chain<C, ROUND ? 1 : 2>(ring, halo, tile, p.w1[rb], p.w2[rb], p.k[rb],
+                                          dl);
+      }))
+    return;
+  float* z = buf + (size_t)n_rows * Rows<C>::LDA;
 
   const long long batch = blockIdx.y;
   const long long t0 = (long long)blockIdx.x * tile;
@@ -91,11 +102,11 @@ mrf_stage_kernel(const T* __restrict__ x, T* out, float* sum, StageParams p,
   for (int rb = 0; rb < p.n_rb; ++rb) {
     const int h = chain_halo(p.k[rb], dl);
     // the previous ResBlock's centre rows have been stored
-    __syncthreads();
+    consumer_sync();
     load_window<T, C>(buf, x, batch, t_len, t0 - halo, halo - h, halo + tile + h);
-    __syncthreads();
+    consumer_sync();
     resblock_chain<C, ROUND>(buf, z, zoff, ring, n_rows, halo, tile, t0, t_len,
-                             p.w1[rb], p.b1[rb], p.w2[rb], p.b2[rb], p.k[rb], dl);
+                             p.b1[rb], p.b2[rb], p.k[rb], dl);
     const int mode = (rb == 0 ? kFirst : 0) | (rb == p.n_rb - 1 ? kLast : 0);
     store_rows<T, C>(buf, halo, rows, (size_t)(batch * t_len + t0) * C, mode,
                      (float)p.n_rb, nullptr, sum, out);
@@ -105,25 +116,29 @@ mrf_stage_kernel(const T* __restrict__ x, T* out, float* sum, StageParams p,
 // One dilation step of one ResBlock: x is the stage input (TI = T) or the
 // fp32 result of the step before (TI = float).
 template <typename TI, typename T, int C, bool ROUND>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
 mrf_step_kernel(const TI* __restrict__ x, float* next, float* sum, T* out,
                 const float* __restrict__ w1, const float* __restrict__ b1,
                 const float* __restrict__ w2, const float* __restrict__ b2, int k,
                 DilationList dl, long long t_len, int tile, int halo, int zoff,
                 int mode, float n) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int n_rows = tile + 2 * halo;
-  float* ring = smem;
-  float* buf = smem + ring_floats(C);
-  float* z = buf + (size_t)n_rows * ConvGeom<C>::LDA;
+  Ring<C> ring;
+  float* buf;
+  if (!start_block<C>(smem, ring, buf, [&] {
+        produce_chain<C, ROUND ? 1 : 2>(ring, halo, tile, w1, w2, k, dl);
+      }))
+    return;
+  float* z = buf + (size_t)n_rows * Rows<C>::LDA;
 
   const long long batch = blockIdx.y;
   const long long t0 = (long long)blockIdx.x * tile;
   const int rows = (int)(t_len - t0 < tile ? t_len - t0 : tile);
   load_window<TI, C>(buf, x, batch, t_len, t0 - halo, 0, n_rows);
-  __syncthreads();
-  resblock_chain<C, ROUND>(buf, z, zoff, ring, n_rows, halo, tile, t0, t_len, w1,
-                           b1, w2, b2, k, dl);
+  consumer_sync();
+  resblock_chain<C, ROUND>(buf, z, zoff, ring, n_rows, halo, tile, t0, t_len, b1, b2,
+                           k, dl);
   store_rows<T, C>(buf, halo, rows, (size_t)(batch * t_len + t0) * C, mode, n,
                    next, sum, out);
 }
@@ -138,14 +153,14 @@ static int launch_step(const void* x, float* next, float* sum, void* out,
   for (int j = 0; j < kMaxDilations; ++j) dl.d[j] = j == 0 ? d : 1;
   const int halo = chain_halo(k, dl);
   const int zoff = z_offset(k, dl, halo);
-  const size_t smem = chain_smem_floats(C, tile, halo, zoff) * sizeof(float);
+  const size_t smem = chain_smem_bytes(C, tile, halo, zoff);
   if (smem > (size_t)kMaxSmemBytes) return kErrSharedMemory;
   auto kern = mrf_step_kernel<TI, T, C, ROUND>;
   static std::atomic<unsigned long long> smem_set{0};
   cudaError_t err = set_max_dynamic_smem(kern, kMaxSmemBytes, smem_set);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((t_len + tile - 1) / tile), (unsigned)B);
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, kBlockThreads, smem, stream>>>(
       static_cast<const TI*>(x), next, sum, static_cast<T*>(out), w1, b1, w2, b2,
       k, dl, t_len, tile, halo, zoff, mode, (float)n_rb);
   return (int)cudaGetLastError();
@@ -189,16 +204,16 @@ static int launch_stage(const void* x, void* out, float* sum,
     const int zo = z_offset(p.k[rb], dl, halo);
     zoff = zo < zoff ? zo : zoff;
   }
-  const size_t smem = chain_smem_floats(C, tile, halo, zoff) * sizeof(float);
+  const size_t smem = chain_smem_bytes(C, tile, halo, zoff);
   if (smem > (size_t)kMaxSmemBytes) return kErrSharedMemory;
   auto kern = mrf_stage_kernel<T, C, ROUND>;
   static std::atomic<unsigned long long> smem_set{0};
   cudaError_t err = set_max_dynamic_smem(kern, kMaxSmemBytes, smem_set);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((t_len + tile - 1) / tile), (unsigned)B);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x),
-                                         static_cast<T*>(out), sum, p, dl,
-                                         t_len, tile, halo, zoff);
+  kern<<<grid, kBlockThreads, smem, stream>>>(static_cast<const T*>(x),
+                                              static_cast<T*>(out), sum, p, dl,
+                                              t_len, tile, halo, zoff);
   return (int)cudaGetLastError();
 }
 
@@ -219,8 +234,9 @@ static int dispatch_stage(int C, const void* x, void* out, float* sum,
 // x, out: contiguous (B, T, C), fp32 (is_bf16 = 0) or bf16 (1), out != x.
 // sum: fp32 (B, T, C) scratch for the running sum over the ResBlocks; with
 // fp32 activations it may be `out`.  weights: host array of 4*n_rb device
-// pointers, per ResBlock (w1, b1, w2, b2) with w (n_dil, k, C, C) fp32 in
-// (tap, out, in) order, 16-byte aligned, and b (n_dil, C).  ks: n_rb odd
+// pointers, per ResBlock (w1, b1, w2, b2) with w the (n_dil, k, C, C)
+// weights packed by emotts_torch/ops/resblock.py::pack_weights (one part
+// with bf16 activations, two with fp32), 16-byte aligned, and b (n_dil, C).  ks: n_rb odd
 // kernel sizes on the host; dils: n_dil ints on the host, the same for every
 // ResBlock.  C in {32, 64, 128}.  With bf16 activations the rounding points
 // of the reference are repeated and the caller passes weights already
@@ -264,8 +280,8 @@ extern "C" int emotts_mrf_stage(const void* x, void* out, void* sum,
 // (0); next: fp32 (B, T, C) for this step's result when `mode` has kToNext
 // (4); else the result goes to the running sum: `sum` fp32 (B, T, C), `out`
 // the stage output, and `mode` says whether this is the first ResBlock (1)
-// and/or the last (2) of the n_rb.  w1, w2: (k, C, C) fp32 in (tap, out, in)
-// order, 16-byte aligned; b1, b2: (C,).  Arithmetic and rounding points as
+// and/or the last (2) of the n_rb.  w1, w2: one dilation step's (k, C, C)
+// weights packed as for emotts_mrf_stage, 16-byte aligned; b1, b2: (C,).  Arithmetic and rounding points as
 // emotts_mrf_stage.  Launches on `stream`; returns 0 or an error code.
 extern "C" int emotts_mrf_step(const void* x, int x_is_input, void* next,
                                void* sum, void* out, const float* w1,

@@ -10,52 +10,57 @@
 // What the TPU version does for its own hardware is dropped: the 8-row halo
 // rounding, the padding of channels to 128 lanes, the bf16 cast of large
 // weight sets.  One thing carries over in another form: at C = 256 the
-// window of a whole k = 7 or k = 11 chain (tile + 2*36 or 2*60 rows of 1 KB)
-// does not fit beside its intermediate in the 227 KB a block has, so the
-// caller runs such a block as one launch per dilation step, each with the
-// halo of that step only (see emotts_torch/ops/resblock.py::launch_plan).
-// The extra passes over x through device memory cost far less than
-// recomputing a 120-row halo per tile would.
+// window of a whole chain (tile + 2*12, 2*36 or 2*60 rows of 1 KB) leaves
+// beside its intermediate and the weight ring no tile that computes few rows
+// per row kept in the 227 KB a block has, so the caller runs such a block as
+// one launch per dilation step, each with the halo of that step only (see
+// emotts_torch/ops/resblock.py::launch_plan: 45-62-row tiles on a long
+// sequence).  The extra passes over x through device memory cost far less
+// than recomputing the halo per tile would; on a short sequence, whose
+// blocks leave SMs idle, the plan may take the whole chain in one launch.
 //
 // Bound on this card: 2*B*T*6k*C^2 operations against 2*B*T*C*itemsize
 // bytes: operations, at every shape the vocoder uses.  The products run on
-// the tensor cores through the conv core of resblock_common.cuh, as 3xTF32
-// (three TF32 products a term, the documented emulation of fp32) for both
-// instances: after the first step the bf16 instance's residual is an fp32
-// sum, not a bf16 value.  At C = 256 the tiles are short (56-88 rows) and a
-// weight chunk holds 16 input channels, so the per-chunk barrier and L2 wait
-// weigh more than at the narrower MRF stages (resblock_common.cuh).
+// the tensor cores through the conv core of resblock_common.cuh (`wgmma`,
+// TF32, A from registers), as 3xTF32 (three TF32 products a term, the
+// documented emulation of fp32) for both instances: after the first step the
+// bf16 instance's residual is an fp32 sum, not a bf16 value.  At C = 256 a
+// pass is one m64 tile, so every 64 rows stream the conv's packed weights
+// from L2 once (resblock_common.cuh).
 #include "resblock_common.cuh"
 
 namespace emotts {
 
+// w1, w2: packed (pack_weights, two parts) per dilation step.
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
 resblock1_kernel(const T* __restrict__ x, T* __restrict__ out,
                  const float* __restrict__ w1, const float* __restrict__ b1,
                  const float* __restrict__ w2, const float* __restrict__ b2,
                  int k, DilationList dl, long long t_len, int tile, int halo,
                  int zoff) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int LDA = ConvGeom<C>::LDA;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int n_rows = tile + 2 * halo;
-  float* ring = smem;
-  float* buf = smem + ring_floats(C);
-  float* z = buf + (size_t)n_rows * LDA;
+  Ring<C> ring;
+  float* buf;
+  if (!start_block<C>(smem, ring, buf, [&] {
+        produce_chain<C, 2>(ring, halo, tile, w1, w2, k, dl);
+      }))
+    return;
+  float* z = buf + (size_t)n_rows * Rows<C>::LDA;
 
   const long long batch = blockIdx.y;
   const long long t0 = (long long)blockIdx.x * tile;
 
   load_window<T, C>(buf, x, batch, t_len, t0 - halo, 0, n_rows);
-  __syncthreads();
-  resblock_chain<C, false>(buf, z, zoff, ring, n_rows, halo, tile, t0, t_len,
-                           w1, b1, w2, b2, k, dl);
-  for (int e = threadIdx.x; e < tile * C; e += kThreads) {
+  consumer_sync();
+  resblock_chain<C, false>(buf, z, zoff, ring, n_rows, halo, tile, t0, t_len, b1, b2,
+                           k, dl);
+  for (int e = threadIdx.x; e < tile * C; e += kConsumers) {
     const int i = e / C, c = e % C;
     const long long t = t0 + i;
     if (t < t_len)
-      out[(batch * t_len + t) * C + c] =
-          from_float<T>(buf[ConvGeom<C>::at(halo + i, c)]);
+      out[(batch * t_len + t) * C + c] = from_float<T>(buf[Rows<C>::at(halo + i, c)]);
   }
 }
 
@@ -66,16 +71,16 @@ static int launch_resblock1(const void* x, void* out, const float* w1,
                             int tile, cudaStream_t stream) {
   const int halo = chain_halo(k, dl);
   const int zoff = z_offset(k, dl, halo);
-  const size_t smem = chain_smem_floats(C, tile, halo, zoff) * sizeof(float);
+  const size_t smem = chain_smem_bytes(C, tile, halo, zoff);
   if (smem > (size_t)kMaxSmemBytes) return kErrSharedMemory;
   auto kern = resblock1_kernel<T, C>;
   static std::atomic<unsigned long long> smem_set{0};
   cudaError_t err = set_max_dynamic_smem(kern, kMaxSmemBytes, smem_set);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((t_len + tile - 1) / tile), (unsigned)B);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x),
-                                         static_cast<T*>(out), w1, b1, w2, b2,
-                                         k, dl, t_len, tile, halo, zoff);
+  kern<<<grid, kBlockThreads, smem, stream>>>(static_cast<const T*>(x),
+                                              static_cast<T*>(out), w1, b1, w2, b2,
+                                              k, dl, t_len, tile, halo, zoff);
   return (int)cudaGetLastError();
 }
 
@@ -96,8 +101,9 @@ static int dispatch_resblock1(int C, const void* x, void* out, const float* w1,
 }  // namespace emotts
 
 // x, out: contiguous (B, T, C), fp32 (is_bf16 = 0) or bf16 (1), out != x.
-// w1, w2: contiguous (n_dil, k, C, C) fp32 in (tap, out, in) order, 16-byte
-// aligned; b1, b2: (n_dil, C) fp32.  dils: n_dil ints on the host.  C in
+// w1, w2: the (n_dil, k, C, C) weights packed in two parts by
+// emotts_torch/ops/resblock.py::pack_weights, contiguous, 16-byte aligned;
+// b1, b2: (n_dil, C) fp32.  dils: n_dil ints on the host.  C in
 // {32, 64, 128, 256}, k odd.  Launches on `stream`, does not synchronise; returns 0 or an error.
 extern "C" int emotts_resblock1(const void* x, void* out, const float* w1,
                                 const float* b1, const float* w2,

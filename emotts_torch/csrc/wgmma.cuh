@@ -1,8 +1,10 @@
-// Hopper building blocks of the bf16 attention kernels: shared-memory tiles
+// Hopper building blocks of the bf16 attention kernels and the vocoder's
+// conv core (TF32 products with A in registers, bulk copies into a ring on
+// mbarriers: resblock_common.cuh): shared-memory tiles
 // in the 128-byte swizzled layout that `wgmma` reads and TMA writes, their
 // matrix descriptors, the `wgmma.mma_async` shapes the kernels issue (bf16
-// operands, fp32 accumulators), mbarriers and TMA copies, small `cp.async`
-// copies and named barriers.  sm_90a only (wgmma does not exist on sm_90).
+// or TF32 operands, fp32 accumulators), mbarriers, TMA and bulk copies,
+// small `cp.async` copies and named barriers.  sm_90a only (wgmma does not exist on sm_90).
 //
 // Tile layout.  A tile of `rows` rows and a multiple of 64 columns of bf16 is
 // stored as column blocks of 64 (one 128-byte swizzle row each), one block
@@ -92,6 +94,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+template <int A, int B, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[A][B][N]) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int b = 0; b < B; ++b) fence_regs(d[a][b]);
+}
 
 #define EMOTTS_ACC8(i)                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
@@ -137,6 +146,50 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// TF32 products with the A operand in registers (the vocoder's conv core,
+// resblock_common.cuh): d (64 x N) += A (64 x 8) * B (8 x N), B in shared
+// memory, K-major (N rows of 8 TF32 values, 32 bytes of a 128-byte swizzled
+// row: `desc` of the row block plus 32 bytes a k8 step).  A thread's four A
+// registers are the m16n8k8 TF32 fragment of its warp's 16 rows: (g, c),
+// (g + 8, c), (g, c + 4), (g + 8, c + 4), g = lane / 4, c = lane % 4.  TF32
+// takes no transposed operand: both must be K-major.
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : EMOTTS_ACC8(0), EMOTTS_ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : EMOTTS_ACC8(0), EMOTTS_ACC8(8), EMOTTS_ACC8(16), EMOTTS_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : EMOTTS_ACC8(0), EMOTTS_ACC8(8), EMOTTS_ACC8(16), EMOTTS_ACC8(24), EMOTTS_ACC8(32), EMOTTS_ACC8(40), EMOTTS_ACC8(48), EMOTTS_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef EMOTTS_ACC8
 
 // Two fp32 values rounded to bf16 (to nearest, ties to even) in one register,
@@ -162,6 +215,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                "r"(bytes)
                : "memory");
+}
+// Count this thread's arrival on barrier `bar` (a consumer releasing a stage).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 // Wait until the phase of parity `parity` of barrier `bar` has completed.  A
 // wait that has not ended after some seconds traps, so that a copy that
@@ -190,6 +247,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap,
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared at `dst` in one bulk copy (16-byte
+// aligned both sides, a multiple of 16 bytes); they count on barrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

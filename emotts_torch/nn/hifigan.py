@@ -16,7 +16,8 @@ generator's checkpoint (weight norm fused) into that layout.
 The three flags of the reference select how the ResBlocks run:
 
 * ``fused_mrf`` — stages with C ≤ 128 go through the fused MRF-stage kernel
-  (``emotts_torch.ops.mrf``), one launch per stage;
+  (``emotts_torch.ops.mrf``), one wrapper call per stage (one launch, or one
+  per dilation step of each ResBlock: ``mrf.launch_plan``);
 * ``use_pallas_resblocks`` (the reference's name, kept) — the remaining
   ResBlocks go through the ResBlock kernel (``emotts_torch.ops.resblock``);
 * ``subpixel_upsample`` — an exactly equivalent formulation of the

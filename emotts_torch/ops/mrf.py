@@ -10,27 +10,33 @@ with fp32 accumulation and the values between ops kept in the input dtype
 (so bf16 activations are rounded after each leaky-relu, as the reference
 kernel rounds them, and the weights are cast to bf16).  The kernel is
 ``csrc/mrf.cu``: one block per (batch row, time tile), every intermediate in
-shared memory, one write of the mean; where shared memory leaves too short a
-tile for the stage's halo (C = 128), one launch per dilation step of each
-ResBlock instead (:func:`launch_plan`).  It is bound by operations
-(2·B·T·126·C² against 2·B·T·C·itemsize bytes) and runs them on the tensor
-cores: as 3xTF32 for fp32 (a documented emulation of fp32: each operand split
-into two TF32 values, three products a term), as one TF32 product a term for
-bf16, whose operands are exact in bf16 and so in TF32.
+shared memory, one write of the mean; where shared memory leaves a tile that
+computes too many halo rows per row kept (C = 128 and 64 on a long
+sequence), one launch per dilation step of each ResBlock instead, each
+launch's tile fitted to the sequence (:func:`launch_plan`).  It is bound
+by operations (2·B·T·126·C² against 2·B·T·C·itemsize bytes) and runs them
+on Hopper's warpgroup MMA (``wgmma``, TF32) through the conv core it shares
+with the ResBlock1 kernel: as 3xTF32 for fp32 (a documented emulation of
+fp32: each operand split into two TF32 values, three products a term), as
+one TF32 product a term for bf16, whose operands are exact in bf16 and so
+in TF32.  The weights are packed for the kernel's ring at their first call
+(``resblock.packed_weights``: two parts for fp32, one for bf16).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from emotts_torch.ops import _build
-from emotts_torch.ops.resblock import (LRELU_SLOPE, chain_halo, chain_rows,
-                                       check_block_params, conv1d_btc, fit_pass,
-                                       tile_for, z_offset)
+from emotts_torch.ops.resblock import (LRELU_SLOPE, SMS, STEP_OVERHEAD, chain_cost,
+                                       chain_fits, chain_halo, check_block_params,
+                                       conv1d_btc, device_sms, fit_pass, fit_tile,
+                                       packed_weights, pass_rows, tile_for, z_offset)
 
 # number of times the wrapper launched the CUDA kernel
 launch_count = 0
@@ -42,13 +48,11 @@ BlockParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def stage_tile(channels: int, kernel_sizes: Sequence[int],
-               dilations: Sequence[int]) -> int:
-    """Largest tile (a multiple of 8 rows) for which window and intermediate
-    fit in shared memory beside the weight ring (the running sum over the
-    ResBlocks is kept in device memory)."""
-    halo = max(chain_halo(k, dilations) for k in kernel_sizes)
-    z_off = min(z_offset(k, dilations, halo) for k in kernel_sizes)
-    tile = fit_pass(channels, tile_for(channels, halo, z_off), 2 * (halo - z_off))
+               dilations: Sequence[int], parts: int = 2) -> int:
+    """The tile for which window and intermediate fit in shared memory beside
+    the weight ring (the running sum over the ResBlocks is kept in device
+    memory), fitted to the core's passes for a long sequence (``fit_pass``)."""
+    tile, _ = _whole_stage(channels, tuple(kernel_sizes), tuple(dilations), parts)
     if tile < 8:
         raise ValueError(
             f"MRF stage with C={channels}, kernels {tuple(kernel_sizes)}, "
@@ -57,41 +61,64 @@ def stage_tile(channels: int, kernel_sizes: Sequence[int],
     return tile
 
 
-# the whole stage goes in one launch when it computes at most this many rows
-# per row it keeps; else one launch per (ResBlock, dilation step)
-MAX_HALO_RATIO = 1.25
+def _stage_cost(kernel_sizes, dilations):
+    return lambda t, s: sum(chain_cost(k, dilations, t, s) for k in kernel_sizes)
 
 
-def launch_plan(channels: int, kernel_sizes: Sequence[int],
-                dilations: Sequence[int]) -> List[Tuple[Optional[int], Optional[int], int]]:
-    """How a stage is cut into launches: ``[(None, None, tile)]`` for the
-    whole stage in one launch, or ``[(resblock, step, tile), ...]`` for one
-    launch per dilation step of each ResBlock, each with the halo of that
-    step only (r·d + r rows a side).  The one launch recomputes each step's
-    halo for the steps after it: where shared memory leaves a tile too short
-    for that (about 1.6 rows computed per row kept at C = 128), the steps go
-    one by one and their results through device memory instead (measured on
-    the card: PERF.md)."""
-    taps = 2 * len(dilations) * sum(kernel_sizes)
-    try:
-        tile = stage_tile(channels, kernel_sizes, dilations)
-    except ValueError:
-        tile = 0
-    if tile and (sum(chain_rows(k, dilations, tile) for k in kernel_sizes)
-                 <= MAX_HALO_RATIO * taps * tile):
-        return [(None, None, tile)]
-    plan = []
+@functools.lru_cache(maxsize=None)
+def _stage_fit(channels, kernel_sizes, dilations, parts):
+    """(tile_for, fit_pass) of the whole stage in one launch."""
+    halo = max(chain_halo(k, dilations) for k in kernel_sizes)
+    z_off = min(z_offset(k, dilations, halo) for k in kernel_sizes)
+    tile = tile_for(channels, halo, z_off)
+    step = pass_rows(channels, parts)
+    cost = _stage_cost(kernel_sizes, dilations)
+    return tile, fit_pass(tile, lambda t: cost(t, step))
+
+
+def _whole_stage(channels, kernel_sizes, dilations, parts, rows=0, length=0, sms=SMS):
+    """fit_tile of the whole stage in one launch."""
+    return fit_tile(*_stage_fit(channels, kernel_sizes, dilations, parts),
+                    _stage_cost(kernel_sizes, dilations), pass_rows(channels, parts),
+                    rows, length, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(channels: int, kernel_sizes: Tuple[int, ...], dilations: Tuple[int, ...],
+                parts: int = 2, rows: int = 0, length: int = 0, sms: int = SMS
+                ) -> Tuple[Tuple[Optional[int], Optional[int], int], ...]:
+    """How a stage over ``rows`` sequences of ``length`` rows (0: long
+    enough to fill the card) with ``parts`` weight parts (2: fp32, 1: bf16)
+    is cut into launches: ``((None, None, tile),)`` for the whole stage in
+    one launch, or ``((resblock, step, tile), ...)`` for one launch per
+    dilation step of each ResBlock, each with the halo of that step only
+    (r·d + r rows a side), every tile fitted by ``fit_tile``.  The one
+    launch recomputes each step's halo for the steps after it, the nine
+    send each step's result through device memory: whichever takes less
+    time, the steps' time taken ``STEP_OVERHEAD`` times.  For a long fp32
+    sequence that is nine launches at C = 128 and 64 (the whole stage's
+    passes 3.07 and 1.45 times the steps') and one at C = 32 (1.24); a
+    short sequence takes shorter tiles, and on a stream's window (one row
+    of 49-66 frames) the whole stage then goes in one launch at every C."""
+    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+    step = pass_rows(channels, parts)
+    whole, whole_time = _whole_stage(channels, kernel_sizes, dilations, parts,
+                                     rows, length, sms)
+    plan, steps_time = [], 0.0
     for rb, k in enumerate(kernel_sizes):
         for j, d in enumerate(dilations):
-            h = chain_halo(k, (d,))
-            z_off = z_offset(k, (d,), h)
-            tile = fit_pass(channels, tile_for(channels, h, z_off), 2 * (h - z_off))
-            if tile < 8:
+            tile, time = fit_tile(*chain_fits(channels, k, (d,), parts),
+                                  lambda t, s, k=k, d=d: chain_cost(k, (d,), t, s),
+                                  step, rows, length, sms)
+            if not tile:
                 raise ValueError(
                     f"MRF stage with C={channels}, k={k}, d={d} does not fit "
                     "in shared memory")
             plan.append((rb, j, tile))
-    return plan
+            steps_time += time
+    if whole and whole_time <= STEP_OVERHEAD[parts] * steps_time:
+        return ((None, None, whole),)
+    return tuple(plan)
 
 
 def fused_mrf_stage_plain(x: torch.Tensor, params: Sequence[BlockParams],
@@ -171,16 +198,17 @@ def fused_mrf_stage(x: torch.Tensor, params: Sequence[BlockParams],
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     is_bf16 = x.dtype == torch.bfloat16
-    # the kernel reads the weights as (tap, out, in), fp32; with bf16
-    # activations the reference casts them to bf16, so the kernel gets fp32
-    # values that are exact in bf16
+    # the kernel reads the weights packed for its ring: with bf16 activations
+    # the reference casts them to bf16, and values exact in bf16 take one
+    # TF32 part; fp32 weights take two (3xTF32)
     dt = x.dtype
     params = [
-        tuple(w.to(dt).float().transpose(-1, -2).contiguous() if i % 2 == 0 else w
+        tuple(packed_weights(w, 1 if is_bf16 else 2, dt) if i % 2 == 0 else w
               for i, w in enumerate(block))
         for block in params
     ]
-    plan = launch_plan(c, kernel_sizes, dilations)
+    plan = launch_plan(c, kernel_sizes, dilations, 1 if is_bf16 else 2, b, t,
+                       device_sms(x.device.index))
     t8 = -(-t // 8) * 8
     out = torch.empty_like(x)
     # fp32 running sum over the ResBlocks: `out` itself for fp32

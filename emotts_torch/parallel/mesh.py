@@ -185,13 +185,15 @@ def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> List[Dict[str, Any]]:
 def replicate(mesh: Mesh, module: nn.Module) -> List[nn.Module]:
     """The replicas of ``module`` this process runs, one per device it
     drives.  In a process group the parameters and buffers are broadcast
-    from the first rank of the data group (in place); in one process the
-    module moves to the first device and a copy goes to each further one."""
+    from the first rank of the data group (in place, their version counters
+    moved: see _written); in one process the module moves to the first
+    device and a copy goes to each further one."""
     if mesh.distributed:
         src = dist.get_global_rank(mesh.group, 0)
         with torch.no_grad():
             for t in list(module.parameters()) + list(module.buffers()):
-                dist.broadcast(t.data, src=src, group=mesh.group)
+                dist.broadcast(t, src=src, group=mesh.group)
+        _written(module)
         return [module]
     first = module.to(mesh.devices[0])
     return [first] + [copy.deepcopy(first).to(d) for d in mesh.devices[1:]]
@@ -359,9 +361,20 @@ def data_parallel(module: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
     from torch.nn.parallel import DistributedDataParallel
 
     device = mesh.devices[0]
-    return DistributedDataParallel(
+    wrapped = DistributedDataParallel(
         module, device_ids=[device] if device.type == "cuda" else None,
         process_group=mesh.group, broadcast_buffers=False)
+    _written(module)
+    return wrapped
+
+
+def _written(module: nn.Module) -> None:
+    """Move the version counters of ``module``'s parameters and buffers
+    after a collective wrote them in place: c10d's writes do not, and what
+    is kept beside a tensor until it changes (the vocoder kernels' packed
+    weights, ``ops/resblock.py::packed_weights``) goes by that counter."""
+    for t in list(module.parameters()) + list(module.buffers()):
+        torch.autograd.graph.increment_version(t)
 
 
 def one_device(mesh: Mesh, what: str) -> torch.device:

@@ -85,8 +85,8 @@ def test_single_resblock_stage_equals_the_resblock(rng):
     np.testing.assert_allclose(stage.numpy(), block.numpy(), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("channels", [32, 64, 128])
-def test_stage_tile_fits_shared_memory(channels):
+@pytest.mark.parametrize("channels,expected", [(32, 442), (64, 186), (128, 46)])
+def test_stage_tile_fits_shared_memory(channels, expected):
     ks, dil = (3, 7, 11), (1, 3, 5)
     tile = tm.stage_tile(channels, ks, dil)
     halo = max(chain_halo(k, dil) for k in ks)
@@ -95,28 +95,55 @@ def test_stage_tile_fits_shared_memory(channels):
     # device memory
     z_off = min(z_offset(k, dil, halo) for k in ks)
     floats = ring_floats(channels) + (2 * tile + 4 * halo - 2 * z_off) * row_floats(channels)
-    assert halo == 60 and tile >= 64 and tile % 8 == 0 and floats <= SMEM_FLOATS
+    # the tile fitted to the core's passes (256, 128, 128 rows at C = 32,
+    # 64, 128); C = 128's window and intermediate leave 46 rows beside the
+    # 64 KB ring
+    assert halo == 60 and tile == expected and floats <= SMEM_FLOATS
     with pytest.raises(ValueError):
         tm.stage_tile(256, ks, dil)
 
 
-@pytest.mark.parametrize("channels,launches", [(32, 1), (64, 1), (128, 9)])
-def test_launch_plan_cuts_a_long_halo_stage_into_steps(channels, launches):
-    """One launch where the stage's tile computes at most 1.25 rows per row
-    kept; else one per (ResBlock, dilation step), each with its own halo."""
-    ks, dil = (3, 7, 11), (1, 3, 5)
+@pytest.mark.parametrize("channels,ks,dil,launches", [
+    (32, (3, 7, 11), (1, 3, 5), 1), (64, (3, 7, 11), (1, 3, 5), 9),
+    (128, (3, 7, 11), (1, 3, 5), 9), (32, (3, 5), (1, 2), 1),
+])
+def test_launch_plan_cuts_a_long_halo_stage_into_steps(channels, ks, dil, launches):
+    """On a long sequence, one launch where the stage's passes are at most
+    STEP_OVERHEAD times those of the steps' launches (C = 32, a short halo);
+    else one per (ResBlock, dilation step), each with its own halo."""
     plan = tm.launch_plan(channels, ks, dil)
     assert len(plan) == launches
     if launches > 1:
         assert [p[:2] for p in plan] == [(rb, j) for rb in range(3) for j in range(3)]
     for rb, j, tile in plan:
         if rb is None:
-            halo, z_off = 60, min(z_offset(k, dil, 60) for k in ks)
+            halo = max(chain_halo(k, dil) for k in ks)
+            z_off = min(z_offset(k, dil, halo) for k in ks)
         else:
             halo = chain_halo(ks[rb], (dil[j],))
             z_off = z_offset(ks[rb], (dil[j],), halo)
         floats = ring_floats(channels) + (2 * tile + 4 * halo - 2 * z_off) * row_floats(channels)
-        assert tile >= 8 and tile % 8 == 0 and floats <= SMEM_FLOATS
+        assert tile >= 8 and floats <= SMEM_FLOATS
+
+
+@pytest.mark.parametrize("channels,parts,rows,t,launches", [
+    (128, 2, 1, 64 * 49, 1), (64, 2, 1, 128 * 66, 1), (32, 1, 1, 256 * 49, 1),
+    (64, 1, 16, 128 * 1024, 1), (64, 2, 16, 128 * 1024, 9), (128, 2, 2, 777, 1),
+])
+def test_launch_plan_follows_the_sequence(channels, parts, rows, t, launches):
+    """The plan for ``rows`` sequences of ``t`` rows: the sweep's (16 rows
+    of 1024 frames) keeps the long-sequence plan; a streaming window (one
+    row of 49 or 66 frames) or a short ragged batch takes tiles short enough
+    to give the SMs a block each, and then the whole stage in one launch."""
+    ks, dil = (3, 7, 11), (1, 3, 5)
+    plan = tm.launch_plan(channels, ks, dil, parts, rows, t, 132)
+    assert len(plan) == launches
+    if t > 100_000:
+        assert plan == tm.launch_plan(channels, ks, dil, parts)
+    else:
+        (_, _, tile), = plan
+        assert 8 <= tile < tm.stage_tile(channels, ks, dil, parts)
+        assert rows * -(-t // tile) <= 132
 
 
 def test_cpu_wrapper_counts_no_launch_and_checks_arguments(rng):
@@ -142,6 +169,32 @@ def test_3xtf32_design_holds_the_fp32_tolerance(rng, monkeypatch):
     assert within(tm.fused_mrf_stage_plain(x, params), want, **KERNEL_TOL)
     monkeypatch.setattr(tm, "conv1d_btc", conv1d_btc_tf32)
     assert not within(tm.fused_mrf_stage_plain(x, params), want, **KERNEL_TOL)
+
+
+def test_packed_3xtf32_stage_holds_the_fp32_tolerance(rng, monkeypatch):
+    """The kernels' arithmetic on the weights as packed for them: each conv
+    of a C = 32 stage takes pack_weights' hi and lo parts (unpacked) and
+    a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, within the kernels' fp32 tolerance of
+    the fp32 plain version and equal to conv1d_btc_3xtf32 on the raw
+    weights."""
+    from emotts_torch.ops.resblock import conv1d_btc, pack_weights, unpack_weights
+
+    def packed_3xtf32(x, w, dilation):
+        hi, lo = (p.transpose(-1, -2) for p in unpack_weights(pack_weights(w, 2), 2))
+        xh = tf32_round(x)
+        xl = tf32_round(x - xh)
+        return (conv1d_btc(xl, hi, dilation) + conv1d_btc(xh, lo, dilation)
+                + conv1d_btc(xh, hi, dilation))
+
+    params = _torch(_params(rng, 32))
+    x = torch.from_numpy(rng.standard_normal((2, 100, 32)).astype(np.float32))
+    want = tm.fused_mrf_stage_plain(x, params)
+    monkeypatch.setattr(tm, "conv1d_btc", conv1d_btc_3xtf32)
+    emulated = tm.fused_mrf_stage_plain(x, params)
+    monkeypatch.setattr(tm, "conv1d_btc", packed_3xtf32)
+    got = tm.fused_mrf_stage_plain(x, params)
+    assert within(got, want, **KERNEL_TOL)
+    assert torch.equal(got, emulated)
 
 
 def test_one_tf32_product_is_exact_on_bf16_operands(rng, monkeypatch):

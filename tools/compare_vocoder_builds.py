@@ -7,13 +7,18 @@ those of a second checkout in turns with them.
     python3 tools/compare_vocoder_builds.py _archive_check/parent
 
 Each checkout builds its own `mrf` and `resblock` libraries (all builds
-started together), then runs ``chip_smoke.py``'s vocoder kernel cases in a
-process of its own; with a second checkout the order is that, this, this,
-that.  Inputs come from one seed, so both checkouts see the same numbers.  A
-case reports the kernel's time (CUDA events around back-to-back wrapper
-calls; these kernels run for milliseconds, so it is device time), the plain
-version's time, and the largest error against the plain version with
-whether it is within ``chip_smoke.py``'s tolerance; a case that is not is
+started together), then runs ``chip_smoke.py``'s vocoder kernel cases, and
+the stages and the whole generator forward (V1, seeded) of a stream's first
+and middle windows at one row, in a process of its own; with a second
+checkout the order is that, this, this, that.  Inputs come from one seed,
+so both checkouts see the same numbers.  A kernel case reports its time
+(CUDA events around back-to-back wrapper calls: device time where the
+kernels run for milliseconds, the wrapper's host time where they are
+shorter), the plain version's time, and the largest error against the plain
+version with whether it is within ``chip_smoke.py``'s tolerance; a
+generator case the median wall time of one forward and its wait (what a
+stream's first window costs its time to first audio), against the plain
+generator's, within 8 PCM steps of it.  A case that is out of tolerance is
 reported, not raised, so that one run shows every case.  Prints one JSON
 line per run, then the means of each checkout's runs, then the card line.
 Needs one GPU and nvcc; exits non-zero if a case of this checkout is out of
@@ -25,9 +30,11 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 SEED = 1234
 FRAMES, ROWS = 1024, 16  # chip_smoke.py: max_mel_len frames, rows per chunk
+WINDOWS = (49, 66)  # mel frames of a stream's first and middle windows
 # (kernel, dtype, rows, T, C, k): the main path's shapes first, then ragged
 # ones (edge masks, a last tile that is cut)
 CASES = [
@@ -39,7 +46,15 @@ CASES = [
 ] + [
     ("mrf", d, r, t, c, None)
     for d in ("float32", "bfloat16") for r, t, c in ((2, 777, 128), (3, 333, 32))
-] + [("resblock", d, 2, 1000, 256, 11) for d in ("float32", "bfloat16")]
+] + [("resblock", d, 2, 1000, 256, 11) for d in ("float32", "bfloat16")] + [
+    # a stream's windows (streaming.py: 32 frames and a 17-frame halo a
+    # side; the first window has none on its left): every stage of one
+    # generator forward, then the whole forward
+    case for w in WINDOWS for case in (
+        [("mrf", "float32", 1, w * u, c, None) for u, c in ((64, 128), (128, 64), (256, 32))]
+        + [("resblock", "float32", 1, w * 8, 256, k) for k in (3, 7, 11)]
+        + [("generator", "float32", 1, w, 80, None)])
+]
 
 
 def worker(tree, build_only, iters):
@@ -77,9 +92,36 @@ def worker(tree, build_only, iters):
         return w1, b1, w2, b2
 
     out = []
+    def wall_ms_of(fn):
+        # one call and its wait at a time, as a stream's first window sees it
+        fn()
+        times = []
+        for _ in range(5 * iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[len(times) // 2]
+
     for kernel, dtype, rows, t, c, k in CASES:
         gen = torch.Generator().manual_seed(SEED)
         x = torch.randn(rows, t, c, generator=gen).to(dev, getattr(torch, dtype))
+        if kernel == "generator":
+            from emotts_torch.nn.hifigan import HiFiGANGenerator
+
+            torch.manual_seed(SEED)
+            voc = HiFiGANGenerator(fused_mrf=True, use_pallas_resblocks=True).to(dev)
+            ref = HiFiGANGenerator().to(dev)
+            ref.load_state_dict(voc.state_dict())
+            with torch.inference_mode():
+                got, want = voc(x), ref(x)
+                err = (got - want).abs().max().item()
+                case = dict(kernel=kernel, dtype=dtype, shape=[rows, t, c], k=k,
+                            max_abs_err=err, within_tolerance=err * 32767 <= 8,
+                            ms=wall_ms_of(lambda: voc(x)), plain_ms=wall_ms_of(lambda: ref(x)))
+            out.append(case)
+            continue
         if kernel == "mrf":
             params = [weights(gen, c, kk) for kk in (3, 7, 11)]
             fn = lambda: M.fused_mrf_stage(x, params)  # noqa: E731
