@@ -432,18 +432,38 @@ def check_attention_bwd(gen, dev):
                                   (torch.float32, 8, 250, 5, 64),
                                   (torch.float32, 8, 250, 5, 256)):
         cases += _bwd_cases(gen, dev, dtype, b, t, iters, d)
+    # rows that attend to one or two keys, where delta = rowsum(dP * P)
+    # cancels against dP exactly only when taken from the same rounded P
+    cases += _bwd_cases(gen, dev, torch.bfloat16, 16, 1024, 10, 192, few_keys=True)
     return cases
 
 
-def _bwd_cases(gen, dev, dtype, b, t, iters, d, h=2, first_head=0):
+def _few_keys_bias(gen, dev, b, t):
+    """A key bias whose examples 2.. keep one or two keys each (example 0
+    keeps all, example 1 none): every query row of such an example attends
+    to those keys alone."""
+    bias = torch.full((b, t), -1e9)
+    bias[0] = 0.0
+    for i in range(2, b):
+        bias[i, torch.randint(0, t, (1 + i % 2,), generator=gen)] = 0.0
+    return bias.to(dev)
+
+
+def _bwd_cases(gen, dev, dtype, b, t, iters, d, h=2, first_head=0, few_keys=False):
     """The backward kernels at one shape, rate 0 and 0.1, against the plain
     backward; ``first_head``: the seeds offset to that head, as a
-    tensor-parallel rank passes them (``parallel.tp.offset_seeds``)."""
+    tensor-parallel rank passes them (``parallel.tp.offset_seeds``);
+    ``few_keys``: the bias of ``_few_keys_bias``.  At rate 0 SDPA's backward
+    is the library call; at rate 0.1 SDPA's backward with its own dropout
+    (other mask bits, the same work) is read beside the case as a yardstick,
+    not as the library call."""
     from emotts_torch.ops import attention as A
     from emotts_torch.parallel.tp import offset_seeds
 
     cases = []
     q, k, v, bias, seeds = _attention_inputs(gen, dev, dtype, b, t, h=h, d=d)
+    if few_keys:
+        bias = _few_keys_bias(gen, dev, b, t)
     seeds = offset_seeds(seeds, first_head)
     dout = torch.randn(b, t, h, d, generator=gen).to(dev, dtype)
     size = q.element_size()
@@ -471,26 +491,28 @@ def _bwd_cases(gen, dev, dtype, b, t, iters, d, h=2, first_head=0):
             q, k, v, bias, seeds, stats, dout, rate))
         plain_ms = time_ms(lambda: A.fused_attention_bwd_plain(
             q, k, v, bias, dout, seeds, rate), iters)
-        library_ms = library_device_ms = None
-        if rate == 0.0:
-            # the library's backward alone: gradients of one retained
-            # forward, taken again and again
-            qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
-                          for x in (q, k, v))
-            mask = bias[:, None, None, :].to(dtype)
-            gh = dout.transpose(1, 2)
-            sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        # the library's backward alone: gradients of one retained forward,
+        # taken again and again
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        mask = bias[:, None, None, :].to(dtype)
+        gh = dout.transpose(1, 2)
+        sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  dropout_p=rate)
 
-            def sdpa_bwd():
-                torch.autograd.grad(sdpa_out, (qh, kh, vh), gh, retain_graph=True)
+        def sdpa_bwd():
+            torch.autograd.grad(sdpa_out, (qh, kh, vh), gh, retain_graph=True)
 
-            library_ms = time_ms(sdpa_bwd, iters)
-            library_device_ms = device_ms(sdpa_bwd)
-            del sdpa_out, qh, kh, vh
-        # the design takes nine T x T x D products where the algorithm
-        # has five (18 against 10 B*H*T^2*D operations), each as three in
-        # fp32
-        design = _attention_design(dtype, 18 * b * h * t * t * d, dev_ms)
+        lib = (time_ms(sdpa_bwd, iters), device_ms(sdpa_bwd))
+        del sdpa_out, qh, kh, vh
+        library_ms, library_device_ms = lib if rate == 0.0 else (None, None)
+        yardstick = {} if rate == 0.0 else dict(
+            sdpa_dropout_ms=lib[0], sdpa_dropout_device_ms=lib[1])
+        # bf16: the delta pass's two T x T x D products and the fused pass's
+        # five (14 against the algorithm's 10 B*H*T^2*D operations); fp32:
+        # nine products (18), each as three
+        products = 14 if dtype == torch.bfloat16 else 18
+        design = _attention_design(dtype, products * b * h * t * t * d, dev_ms)
         cases.append(dict(
             dtype=str(dtype).split(".")[1], shape=[b, t, h, d], rate=rate,
             max_abs_err=max(e[0] for e in errs),
@@ -501,8 +523,9 @@ def _bwd_cases(gen, dev, dtype, b, t, iters, d, h=2, first_head=0):
             operations_algorithm=10 * b * h * t * t * d,
             products_as_designed=design["operations"], split=design["split"],
             operations_as_designed=design["operations_as_designed"],
-            tensor_tflops=design["tensor_tflops"],
+            tensor_tflops=design["tensor_tflops"], **yardstick,
             **({"first_head": first_head} if first_head else {}),
+            **({"bias": "one or two keys a row"} if few_keys else {}),
         ))
         del stats, got
     del q, k, v, dout
@@ -1296,6 +1319,7 @@ def train_parity_phase(root, dev):
     through the kernels against the same step with the plain forward and
     backward put in their place (same weights, batch, λ, dropout masks)."""
     from emotts_torch.losses.rank import rank_loss
+    from emotts_torch.ops import attention as A
     from emotts_torch.train.rank_trainer import RankTrainer, batch_to_device
 
     cfg = rank_config(root, "float32")
@@ -1321,7 +1345,8 @@ def train_parity_phase(root, dev):
     layers = cfg.rank_model.n_encoder_layers
     return _kernels_against_plain(step, dict(
         frames=int(b["emo_x"].shape[1]), rows=int(2 * b["emo_x"].shape[0])),
-        dict(fused_attention=layers, fused_attention_bwd=2 * layers))
+        dict(fused_attention=layers,
+             fused_attention_bwd=A.BWD_LAUNCHES_PER_CALL * layers))
 
 
 def _gradient_ratios(grads, ref):
@@ -1592,7 +1617,7 @@ def fs2_parity_phase(root, rank_exp, dev):
         frames=int(b["mel"].shape[1]), phones=int(b["phonemes"].shape[1]),
         rows=int(b["mel"].shape[0])),
         dict(fused_attention=fs2_layers + cfg.rank_model.n_encoder_layers,
-             fused_attention_bwd=2 * fs2_layers), relu_gates=True)
+             fused_attention_bwd=A.BWD_LAUNCHES_PER_CALL * fs2_layers), relu_gates=True)
 
 
 STREAM_CHUNK = 32  # mel frames a chunk: 512 ms of audio
@@ -4312,7 +4337,8 @@ def main():
         "fused_attention": lambda c: c["dtype"] == "bfloat16" and c["shape"][1] == 1024,
         # the largest bucket of a training step at batch 8 (16 rows), with dropout
         "fused_attention_bwd": lambda c: (c["dtype"] == "bfloat16" and c["rate"] > 0
-                                          and c["shape"][:2] == [16, 1024]),
+                                          and c["shape"][:2] == [16, 1024]
+                                          and "bias" not in c),
         "fused_mrf_stage": lambda c: c["dtype"] == "float32" and c["shape"][1:] == [65536, 128],
         "fused_resblock1": lambda c: (c["dtype"] == "float32" and c["k"] == 11
                                       and c["shape"][1] == 8192),
@@ -4347,7 +4373,7 @@ def main():
             # the library call is timed without dropout: take that case's time
             library_ms=next((c["library_ms"] for c in cases[name]
                              if c["shape"] == head["shape"] and c["dtype"] == head["dtype"]
-                             and c["library_ms"] is not None), None),
+                             and c["library_ms"] is not None and "bias" not in c), None),
             at=dict(dtype=head["dtype"], shape=head["shape"]),
         ))
         with_ratios(kernels[-1])

@@ -26,79 +26,111 @@
 // 2).  So the sum is taken as the reference takes it, from the same rounded
 // P that forms dS, in a sweep of its own over the key tiles.
 //
-// Two reduction directions, two launches and no atomics, so that a repeated
-// call gives the same bits: every sum is taken by one thread or one
-// warpgroup's tensor-core accumulator in a fixed order, and each output
-// element is written once.
-//   dq kernel    one block per query tile; a first sweep over the key tiles
-//                sums rowsum(dP * P) and stores it (`delta`) for the second
-//                kernel, a second sweep accumulates dQ;
-//   dkv kernel   one block per key tile, a sweep over the query tiles.
-// Every sweep recomputes S and dP_d for its tile pairs, so the design does
-// nine T x T x D products where the algorithm has five (18 against
-// 10 * B*H*T^2*D operations).  In bf16 the products are not what the time
-// goes to (the exponentials, the roundings and the copies around them are);
-// in fp32 they are, and the four extra products are what keeps the pair
-// slower than a backward that takes rowsum(dP * P) from a saved O.  The
-// dropout mask is regenerated from (seed, head, query, key) exactly as in
-// the forward kernel (attention_common.cuh).
+// Two launches a call in either dtype, and no atomic whose order varies, so
+// that a repeated call gives the same bits.  The dropout mask is the one the
+// forward kernel draws from (seed, head, query, key) (attention_common.cuh).
+//
+// What bounds it on this card: 10*B*H*T^2*D operations against
+// (4 reads + 3 writes)*B*T*H*D*itemsize + statistics bytes, so operations
+// from T of a few hundred on.
 //
 // Padding: the bias is additive -1e9, so a padded key has P = 0 exactly and
 // a fully padded query row has uniform P and a finite gradient, as in the
 // reference.  Query and key slots beyond T in a last tile are given P = 0,
 // so they add nothing to rows that exist, and are never written.
 //
-// What bounds it on this card: 10*B*H*T^2*D operations against
-// (4 reads + 3 writes)*B*T*H*D*itemsize + statistics bytes, so operations
-// from T of a few hundred on.
-//
-// bf16: on the tensor cores (wgmma, sm_90a; building blocks in wgmma.cuh).
-// The products are m64n64k16 (m64n32k16 for S and dP at D = 256): two
-// operands in shared memory where both are tiles, a register A operand where
-// one side is a fresh result (P or dS, packed to bf16 pairs from its
-// accumulator registers), a tile read MN-major where the head dim is the
-// output (one instruction per 64 columns).  Tiles are copied by TMA into
-// 128-byte swizzled, double-buffered stages with one mbarrier each (rows
+// bf16: on the tensor cores (wgmma, sm_90a; building blocks in wgmma.cuh),
+// P, dP and dS formed once per (query tile, key tile) pair: 14 B*H*T^2*D
+// operations (the delta pass's two products, the fused pass's five) against
+// the algorithm's 10, and two passes of exponentials.  Tiles are copied by
+// TMA into 128-byte swizzled, double-buffered stages on mbarriers (rows
 // beyond T and columns beyond D come in as zeros; D rounded up to whole
-// 64-column blocks); the statistics and the bias come by 4-byte cp.async;
-// one __syncthreads a tile hands a stage back.
-//  - dq kernel (`attention_bwd_dq_tc_kernel`): two warpgroups, each owning 64
-//    query rows, share the K and V tiles (64 keys; 32 at D = 256, for
-//    registers).  Per tile S = Q K^T and dP_d = dO V^T; P, dP and dS are
-//    formed on their accumulator registers; in the second sweep dS is the
-//    register A operand of dQ += dS K.  dQ is 64 x D fp32 in registers.
-//    Shared memory: Q and dO of 128 rows, two stages of K and V: 193.5 KB at
-//    D = 192, 193.3 KB at D = 256; 202 registers a thread at D = 192.
-//  - dkv kernel (`attention_bwd_dkv_tc_kernel`): one block per 64 keys, two
-//    warpgroups with their own roles, since dK and dV together would be
-//    2 * 64 * D fp32 (192 registers a thread at D = 192).  Keys are the rows
-//    of every product (M = 64), so a key's values sit in one row of
-//    registers.  Per 64-query tile:
-//      warpgroup 0: S^T = K Q^T; P^T = exp(S^T - m) / l rounded to bf16;
-//                   P_d^T; P^T to a 8 KB scratch (bf16 pairs, register-major:
-//                   thread t of the other warpgroup holds the same elements;
-//                   a dropped entry carries its mask in the sign bit);
-//                   dV += P_d^T dO with P_d^T as the register A operand;
-//      warpgroup 1: dP_d^T = V dO^T, and 1 / l of the tile's queries while
-//                   that product runs; dS^T = P^T (dP^T - delta) * scale;
-//                   dK += dS^T Q with dS^T as the register A operand.
-//    Two named barriers a tile order the hand-overs (1 / l to warpgroup 0,
-//    P^T to warpgroup 1).  Shared memory: K and V of 64 rows, two stages of
-//    Q and dO of 64 rows, the scratch, the statistics: 154.5 KB at D = 192,
-//    202.5 KB at D = 256; 180 registers a thread at D = 192.
-//  - Deterministic: each output element is one warpgroup's accumulator,
-//    summed over the tiles in a fixed order, and delta is each thread's
-//    fp32 sum over the key tiles in order, then the four lanes of a row in a
-//    fixed butterfly.  No atomics.
+// 64-column blocks, NB of them); the statistics, the bias and the keep
+// words come by 4-byte cp.async.  Both passes form P with `prob`: 2^(S *
+// scale * log2(e) + bias * log2(e) - lse2), lse2 = m * log2(e) + log2(l)
+// of the row, one add, one fma and one ex2 an entry.
+//  - delta pass (`attention_bwd_delta_tc_kernel`): one block per 128
+//    queries, two warpgroups of 64 query rows sharing the K and V tiles (64
+//    keys; 32 at D = 256).  Per tile S = Q K^T and dP_d = dO V^T, P rounded
+//    to bf16, delta += rowsum(dP * P) in each thread's fp32 sum in key
+//    order, then the four lanes of a row in a fixed butterfly.  At rate > 0
+//    it draws each 4-key Philox word once (lanes c and c ^ 1 share a word's
+//    group: each draws it for one of its two rows and hands the other the
+//    two words it keeps) and writes the keep bits as words of 32 keys, (B,
+//    H, ceil(T / 32), T) uint32, which the fused pass reads instead of
+//    drawing.  It sets the fused pass's dQ counters to 0.  Shared memory: Q
+//    and dO of 128 rows, two stages of K and V and their bias: 193.5 KB at D
+//    = 192 and 256.
+//  - fused pass (`attention_bwd_fused_tc_kernel`): one block per 64 keys, two
+//    warpgroups with their own roles; keys are the rows of every product but
+//    dQ's (M = 64), so a key's values sit in one row of registers.  Per
+//    64-query tile (one step):
+//      warpgroup 0: S^T = K Q^T; P^T rounded to bf16; P_d^T from the keep
+//                   words; P^T to an 8 KB scratch (bf16 pairs,
+//                   register-major, a dropped entry with its sign bit set);
+//                   dV += P_d^T dO, P_d^T the register A operand;
+//      warpgroup 1: dP_d^T = V dO^T, and lse2 of the tile's queries while
+//                   that product runs; dS^T = P^T (dP^T - delta) * scale,
+//                   rounded, the register A operand of dK += dS^T Q and a
+//                   swizzled 64 x 64 tile in shared memory;
+//      both:        the tile's dQ partial dS K, A = that tile read MN-major
+//                   (no transpose); warpgroup 1 the first ceil(NB / 2)
+//                   column blocks, warpgroup 0 the rest.
+//    What each warpgroup holds: dV or dK (NB * 32 fp32 registers a thread, 96
+//    at D = 192), its share of the dQ partial (ceil(NB / 2) * 32), S^T or
+//    dP_d^T (32) and the A fragments (16).  dV, dK and dQ's products take
+//    the whole width in one wgmma a 16-deep step (m64nNk16, N up to 256).
+//    Named barriers hand over lse2 (2), P^T (1) and dS^T (3).  The steps
+//    overlap: a step issues its S^T or dP_d^T product while the previous
+//    step's dV, dK and dQ products still run, waits for those (wait<1>), and
+//    the previous step's dQ partial is added under the new products.  No
+//    __syncthreads a step: the stage's barrier counts both its TMA bytes and
+//    warpgroup 0's cp.async arrivals, and warpgroup 0 refills the other
+//    stage once both warpgroups are past wait<1> (barrier 2).  Shared
+//    memory: K and V, two stages of Q and dO, the dS^T tile, the P^T
+//    scratch, statistics and keep words: 163.5 KB at D = 192, 211.5 KB at
+//    D = 256.
+//  - dQ in a fixed order.  The partials of a query tile are added into an
+//    fp32 workspace (per 64-query tile 64 * 64 * NB floats in the
+//    accumulators' register order, so that a warp's adds cover 512
+//    contiguous bytes) in one fixed order of key tiles, so the sum's bits do
+//    not depend on which block gets there first.  A counter per (b, h, query
+//    tile) says whose turn it is: warpgroup 1's thread 0 waits for the turn
+//    (acquire) while its dP_d^T product runs and passes it on through
+//    barriers 5 and 4; the first turn stores, later turns add with `red` (the
+//    turn is exclusive), the last adds its partial to the sum it loads and
+//    rounds to bf16 into dq; thread 0 hands the turn on after barrier 3, by
+//    which every thread's adds are done, with an add of release semantics
+//    (it covers the other threads' adds, ordered before it by the barrier;
+//    no separate fence).  Blocks are
+//    launched in the order of their linear index and the key tile is the
+//    grid's fastest index, so the blocks of one (b, h) start in key-tile
+//    order.  Where they fit on the card together (the host checks the key
+//    tiles against the SMs), block kt takes query tile (kt + step) % nqt at
+//    step `step`, its turn is `step`, and the turn before it is block kt +
+//    1's, taken one step earlier: no block starts by waiting.  Otherwise
+//    every block takes tile `step` and the order is the key-tile order, in
+//    which a block waits only for blocks launched before it.
 //  - Rounding points as the reference: P rounded to bf16 before it enters
 //    dS and (dropped out and rounded again) dV; dS rounded to bf16 before dQ
 //    and dK.  Rounding of a single value is integer arithmetic
 //    (round_bf16_alu), of a pair one conversion instruction: the conversion
 //    unit is the one the exponentials use.
+//  - Registers a thread and spill bytes (stores/loads) as ptxas reports them
+//    (tools/profile_attention_f32.py), rate 0 / rate > 0:
+//      delta pass  D = 32, 64: 90 / 140;  96, 128: 113 / 154;
+//                  192: 123 / 145;  256: 96 / 122; no spills;
+//      fused pass  D = 32: 142 / 142;  64: 156 / 154;  96, 128: 190 / 190;
+//                  192: 240 / 238, no spills;  256: 255 / 255 with 60 / 92
+//                  bytes spilled (no model of the repo has D = 256).
 // fp32: on the tensor cores (mma.sync.m16n8k8, TF32 operands, each product
-// as three: 3xTF32, see attention.cu and common.cuh), the same nine products
-// and the same two launches.  What bounds it: operations; the design does
-// 3 x 18 against the bound's 10 B*H*T^2*D, so bound / time stays under 1/5.
+// as three: 3xTF32, see attention.cu and common.cuh), on a schedule of two
+// reduction directions that recomputes S and dP_d in every sweep: a dq kernel over query tiles (a first sweep over
+// the key tiles sums delta and stores it, a second accumulates dQ) and a
+// dkv kernel over key tiles, nine T x T x D products where the algorithm
+// has five (18 against 10 B*H*T^2*D operations); the dkv kernel draws each
+// 4-key Philox word four times.  What bounds it: operations; the design
+// does 3 x 18 against the bound's 10, so bound / time stays under 1/5.
 // Every tile is fp32 at a row stride of D + 4 floats (conflict-free
 // fragment loads), copied by 16-byte cp.async with rows beyond T
 // zero-filled; the bias and the row statistics come by 4-byte cp.async.  A
@@ -148,6 +180,9 @@ struct BwdArgs {
   const void* dout;
   void *dq, *dk, *dv;
   float* delta;
+  uint32_t* keep;   // bf16 only: the delta pass's keep words
+  float* dq_acc;    // bf16 only: the fp32 dQ workspace
+  int* counters;    // bf16 only: the dQ adds' turns
   int B, T, H;
   uint32_t thresh;
   float inv_keep;
@@ -560,10 +595,55 @@ int dispatch_attention_bwd_f32(const BwdArgs& a, int D) {
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 
+// Waiting for a turn and handing it on (the ordered dQ adds): one thread
+// loads the counter with acquire semantics until it reaches the block's
+// turn, and a barrier passes the turn to the others; after their adds and a
+// barrier, one thread advances the counter with release semantics.  A wait
+// that has not ended after some seconds traps, so that a broken order fails
+// the launch instead of hanging the card.
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_release_gpu_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ void wait_turn(const int* counter, int turn) {
+  for (uint32_t n = 0; ld_acquire_gpu(counter) != turn; ++n) {
+    if (n == (1u << 22)) __trap();
+    __nanosleep(64);
+  }
+}
+
+// P of one entry, exp(S * scale + bias - m) / l, as 2^(S * scale2 + bias2 -
+// lse2) with scale2 = scale * log2(e), bias2 the bias times log2(e) and
+// lse2 = m * log2(e) + log2(l) of the entry's row (`row_lse2`): one add, one
+// fma and one ex2 an entry.  Both passes form P with these functions, from
+// the same inputs, so they agree bit for bit.  An example whose keys are all
+// padded (bias -1e9) has every row's maximum near -1e9, and S * scale +
+// bias, rounded at that magnitude, is the same for every key, so its P is
+// uniform; `log2e_for` gives such an example the factor 0 in place of
+// log2(e), which makes every exponent -log2(l) and P = 1 / l, as the
+// forward's statistics have it.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float log2e_for(float row0_max) {
+  return row0_max < -1e8f ? 0.f : kLog2e;
+}
+__device__ __forceinline__ float row_lse2(float m, float l, float lg) {
+  float l2;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l2) : "f"(l));
+  return fmaf(m, lg, l2);
+}
+__device__ __forceinline__ float prob(float s, float scale2, float bias2, float lse2) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fmaf(s, scale2, bias2 - lse2)));
+  return e;
+}
+
 template <int D>
-struct BwdQTc {
+struct BwdDeltaTc {
   static constexpr int DP = TcWidth<D>::DP;
-  static constexpr int NB = TcWidth<D>::NB;
   static constexpr int BQ = 128;               // two warpgroups of 64 queries
   static constexpr int BK = D > 192 ? 32 : 64;  // keys per tile
   static constexpr int THREADS = 256;
@@ -576,26 +656,32 @@ struct BwdQTc {
   static constexpr int SMEM = 1024 + BARS + 2 * 8;
 };
 
+// The delta pass: one block per 128 queries, a sweep over the key tiles.
+// Writes delta = rowsum(dP * P) and, with dropout, the keep bits of every
+// (query, key) as words of 32 keys; sets the fused pass's dQ counters of its
+// query tiles to 0.
 template <int D, bool DROP>
-__global__ void __launch_bounds__(BwdQTc<D>::THREADS, 1)
-attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
-                           const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v,
-                           const __grid_constant__ CUtensorMap tm_do,
-                           const float* __restrict__ bias,
-                           const int* __restrict__ seeds,
-                           const float* __restrict__ stats,
-                           __nv_bfloat16* __restrict__ dq,
-                           float* __restrict__ delta_out, int Tlen, int H,
-                           float scale, uint32_t thresh, float inv_keep) {
-  using C = BwdQTc<D>;
-  constexpr int NS = C::BK / 2;  // accumulator registers of an S tile
+__global__ void __launch_bounds__(BwdDeltaTc<D>::THREADS, 1)
+attention_bwd_delta_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ bias,
+                              const int* __restrict__ seeds,
+                              const float* __restrict__ stats,
+                              float* __restrict__ delta_out,
+                              uint32_t* __restrict__ keep_out,
+                              int* __restrict__ counters, int Tlen, int H,
+                              float scale, uint32_t thresh, float inv_keep) {
+  using C = BwdDeltaTc<D>;
+  constexpr int NS = C::BK / 2;   // accumulator registers of an S tile
+  constexpr int NW = C::BK / 32;  // keep words of a row in a key tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = wg::align_1024(smem_raw);
   const uint32_t sQ = wg::smem_addr(smem);
   const uint32_t sDO = sQ + C::Q_BYTES;
   const uint32_t sKV = sDO + C::Q_BYTES;
-  const float* sBias = reinterpret_cast<const float*>(smem + C::BIAS);
+  float* sBias = reinterpret_cast<float*>(smem + C::BIAS);
   const uint32_t sBiasAddr = sQ + C::BIAS;
   const uint32_t bar = sQ + C::BARS;  // stage s: bar + 8 s
 
@@ -605,15 +691,20 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int g = (tid & 31) >> 2, c = tid & 3;
   const int q0 = blockIdx.x * C::BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const long long row_stride = (long long)H * D;
-  const long long base = (long long)b * Tlen * row_stride + (long long)h * D;
-  const long long stat_row = ((long long)b * H + h) * Tlen;
+  const long long bh = (long long)b * H + h;
+  const long long stat_row = bh * Tlen;
   const long long stat_plane = (long long)gridDim.z * H * Tlen;
   const float* bias_b = bias + (long long)b * Tlen;
   const int nkt = (Tlen + C::BK - 1) / C::BK;
+  const int kwords = (Tlen + 31) / 32;
   const int row0 = q0 + 64 * wgi + 16 * warp + g;  // rows row0, row0 + 8
   const uint32_t sQw = sQ + wgi * 64 * 128, sDOw = sDO + wgi * 64 * 128;
   const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
+
+  if (tid < C::BQ / 64) {
+    const int nqt = (Tlen + 63) / 64, qt = blockIdx.x * (C::BQ / 64) + tid;
+    if (qt < nqt) counters[bh * nqt + qt] = 0;
+  }
 
   // K, V of tile j into stage s by TMA (thread 0), the bias by cp.async
   auto load_kv = [&](int j, int s, uint32_t extra_bytes) {
@@ -644,47 +735,31 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     tma_tile<D, C::BQ>(sDO, tm_do, bar, h, q0, b);
   }
 
-  float m[2], inv_l[2], dsum[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  const float lg = log2e_for(stats[stat_row]);
+  const float scale2 = scale * lg;
+  float lse2[2], dsum[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = row0 + 8 * r;
-    m[r] = t < Tlen ? stats[stat_row + t] : 0.f;
-    // a row beyond T gets 1 / l = 0, hence P = 0
-    inv_l[r] = t < Tlen ? 1.f / stats[stat_plane + stat_row + t] : 0.f;
+    // a row beyond T gets lse2 = inf, hence P = 0
+    lse2[r] = t < Tlen ? row_lse2(stats[stat_row + t], stats[stat_plane + stat_row + t], lg)
+                       : INFINITY;
   }
-  float acc[C::NB][32];
-  float sc[NS], dp[NS];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) sc[i] = dp[i] = 0.f;
-#pragma unroll
-  for (int n = 0; n < C::NB; ++n)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
 
-  // sweep 0 (it < nkt): rowsum(dP * P); sweep 1: dQ.  Iteration `it` uses
-  // stage it % 2 for the (it / 2)-th time.
-  for (int it = 0; it < 2 * nkt; ++it) {
+  for (int it = 0; it < nkt; ++it) {
     const int s = it & 1;
-    const bool second = it >= nkt;
-    const int k0 = (second ? it - nkt : it) * C::BK;
+    const int k0 = it * C::BK;
     wg::mbar_wait(bar + 8 * s, (it >> 1) & 1);
     wg::cp_async_wait<0>();
+    if (tid < C::BK) sBias[s * C::BK + tid] *= lg;  // the thread's own copy, as `prob` takes it
     __syncthreads();
-    if (it + 1 < 2 * nkt) load_kv(it + 1 < nkt ? it + 1 : it + 1 - nkt, s ^ 1, 0);
-    if (it == nkt) {
-      // the four lanes of a row add their shares in a fixed order
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
-        delta[r] = dsum[r];
-        const int t = row0 + 8 * r;
-        if (c == 0 && t < Tlen) delta_out[stat_row + t] = delta[r];
-      }
-    }
+    if (it + 1 < nkt) load_kv(it + 1, s ^ 1, 0);
     const uint32_t sK = sKV + 2 * s * C::KV_BYTES, sV = sK + C::KV_BYTES;
 
     // S = Q K^T, dP_d = dO V^T
+    float sc[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = dp[i] = 0.f;
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < C::DP / 16; ++kk) {
@@ -698,152 +773,203 @@ attention_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // only the last tile has key slots beyond T
     const bool full = k0 + C::BK <= Tlen;
-    uint32_t da[C::BK / 16][4];  // dS, the A fragments of dQ += dS K
+    uint32_t kbits[2][NW];  // keep bits of rows row0, row0 + 8: word w, bit key % 32
 #pragma unroll
-    for (int i = 0; i < C::BK / 8; ++i)
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        uint4 w = make_uint4(0u, 0u, 0u, 0u);
-        if constexpr (DROP)
-          w = dropout_bits(key, (uint32_t)(row0 + 8 * r),
-                           (uint32_t)((k0 >> 2) + 2 * i + (c >> 1)));
-        float ds[2];
+      for (int w = 0; w < NW; ++w) kbits[r][w] = 0u;
+#pragma unroll
+    for (int i = 0; i < C::BK / 8; ++i) {
+      // keys k0 + 8i + 2c + e are words 2(c & 1) + e of group (k0 + 8i) / 4
+      // + c / 2: lanes c and c ^ 1 share the group, so the even lane draws
+      // it for row0 and the odd one for row0 + 8, and each hands the other
+      // the two words it keeps of its row.  One draw a word.
+      uint32_t word[2][2] = {{0u, 0u}, {0u, 0u}};  // [row][e]
+      if constexpr (DROP) {
+        const int odd = c & 1;
+        const uint4 w = dropout_bits(key, (uint32_t)(row0 + 8 * odd),
+                                     (uint32_t)((k0 >> 2) + 2 * i + (c >> 1)));
+        const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+        const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+        word[0][0] = odd ? got0 : w.x;
+        word[0][1] = odd ? got1 : w.y;
+        word[1][0] = odd ? w.z : got0;
+        word[1][1] = odd ? w.w : got1;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * i + 2 * c + e;
           const int idx = 4 * i + 2 * r + e;
-          const float sv = __fadd_rn(__fmul_rn(sc[idx], scale), sBias[s * C::BK + col]);
-          float p = round_bf16_alu(__expf(sv - m[r]) * inv_l[r]);
+          float p = round_bf16_alu(
+              prob(sc[idx], scale2, sBias[s * C::BK + col], lse2[r]));
           if (!full && k0 + col >= Tlen) p = 0.f;
           float dpv = dp[idx];
           if constexpr (DROP) {
-            const uint32_t word = (c & 1) ? (e ? w.w : w.z) : (e ? w.y : w.x);
-            dpv = word >= thresh ? dpv * inv_keep : 0.f;
+            const bool keep = word[r][e] >= thresh;
+            dpv = keep ? dpv * inv_keep : 0.f;
+            kbits[r][i >> 2] |= (uint32_t)keep << (col & 31);
           }
-          if (second)
-            ds[e] = (p * (dpv - delta[r])) * scale;  // rounded by the packing
-          else
-            dsum[r] = fmaf(dpv, p, dsum[r]);
+          dsum[r] = fmaf(dpv, p, dsum[r]);
         }
-        if (second) da[i >> 1][2 * (i & 1) + r] = wg::pack_bf16(ds[0], ds[1]);
+    }
+    if constexpr (DROP) {
+      // the four lanes of a row hold disjoint bits; lane c stores entry c of
+      // the row's 2 * NW words
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          kbits[r][w] |= __shfl_xor_sync(0xffffffffu, kbits[r][w], 1);
+          kbits[r][w] |= __shfl_xor_sync(0xffffffffu, kbits[r][w], 2);
+        }
+      if (c < 2 * NW) {
+        const int r = c / NW, w = c % NW;
+        const int t = row0 + 8 * r, kw = (k0 >> 5) + w;
+        if (t < Tlen && kw < kwords)
+          keep_out[(bh * kwords + kw) * Tlen + t] = kbits[r][w];
       }
-
-    if (second) {
-      // dQ += dS K
-      wg::fence();
-#pragma unroll
-      for (int kk = 0; kk < C::BK / 16; ++kk)
-#pragma unroll
-        for (int n = 0; n < C::NB; ++n)
-          wg::mma_rs(acc[n], da[kk], wg::desc_mn(sK, C::BK, kk, n), 1);
-      wg::commit();
-      wg::wait<0>();
-#pragma unroll
-      for (int n = 0; n < C::NB; ++n) wg::fence_regs(acc[n]);
-#pragma unroll
-      for (int kk = 0; kk < C::BK / 16; ++kk) wg::fence_regs(da[kk]);
     }
   }
 
+  // the four lanes of a row add their shares in a fixed order
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
     const int t = row0 + 8 * r;
-    if (t < Tlen) {
-      __nv_bfloat16* row = dq + base + (long long)t * row_stride;
-#pragma unroll
-      for (int n = 0; n < C::NB; ++n)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int col = 64 * n + 8 * i + 2 * c;
-          if (col < D)
-            *reinterpret_cast<uint32_t*>(row + col) =
-                wg::pack_bf16(acc[n][4 * i + 2 * r], acc[n][4 * i + 2 * r + 1]);
-        }
-    }
+    if (c == 0 && t < Tlen) delta_out[stat_row + t] = dsum[r];
   }
 }
 
 template <int D>
-struct BwdKVTc {
+struct BwdFusedTc {
   static constexpr int DP = TcWidth<D>::DP;
   static constexpr int NB = TcWidth<D>::NB;
-  static constexpr int BKEY = 64;  // keys per block: the rows of every product
-  static constexpr int BQ = 64;    // queries per tile
+  static constexpr int BKEY = 64;  // keys per block: the rows of S^T, dP^T, dK, dV
+  static constexpr int BQ = 64;    // queries per tile: the rows of dQ
   static constexpr int THREADS = 256;
   static constexpr int TILE = 64 * DP * 2;  // one 64-row bf16 tile
-  // K, V; Q of stage 0, 1; dO of stage 0, 1 (in tiles); P^T as bf16 pairs
-  // (64 x 64, register-major); m, l (then 1 / l), delta of both stages; the
-  // copy barriers (K and V, then each stage)
-  static constexpr int PSCRATCH = 6 * TILE;
+  // K, V; Q of stage 0, 1; dO of stage 0, 1 (in tiles); dS^T (64 x 64 bf16,
+  // swizzled as a TMA tile: the A operand of dQ's product); P^T as bf16
+  // pairs (64 x 64, register-major); m (then lse2), l, delta of both stages;
+  // the keep words of both stages ([stage][word][query]); the copy barriers
+  // (K and V, then each stage)
+  static constexpr int DST = 6 * TILE;
+  static constexpr int PSCRATCH = DST + 64 * 64 * 2;
   static constexpr int STATS = PSCRATCH + 64 * 64 * 2;
-  static constexpr int BARS = STATS + 2 * 3 * BQ * 4;
+  static constexpr int KEEP = STATS + 2 * 3 * BQ * 4;
+  static constexpr int BARS = KEEP + 2 * 2 * BQ * 4;
   static constexpr int SMEM = 1024 + BARS + 3 * 8;
+  // dQ's 64-column blocks: warpgroup 1 takes the first NQB, warpgroup 0 the rest
+  static constexpr int NQB = (NB + 1) / 2;
 };
 
+// The fused pass: one block per (key tile, head, example), the key tile the
+// grid's fastest index.  Per query tile: S^T, P^T, dP^T, dS^T once; dV, dK
+// accumulate in registers; the tile's dQ partial dS K is added into the fp32
+// workspace in a fixed order of key tiles (the last adder rounds to bf16).
 template <int D, bool DROP>
-__global__ void __launch_bounds__(BwdKVTc<D>::THREADS, 1)
-attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
-                            const __grid_constant__ CUtensorMap tm_k,
-                            const __grid_constant__ CUtensorMap tm_v,
-                            const __grid_constant__ CUtensorMap tm_do,
-                            const float* __restrict__ bias,
-                            const int* __restrict__ seeds,
-                            const float* __restrict__ stats,
-                            const float* __restrict__ delta,
-                            __nv_bfloat16* __restrict__ dk,
-                            __nv_bfloat16* __restrict__ dv, int Tlen, int H,
-                            float scale, uint32_t thresh, float inv_keep) {
-  using C = BwdKVTc<D>;
+__global__ void __launch_bounds__(BwdFusedTc<D>::THREADS, 1)
+attention_bwd_fused_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ stats,
+                              const float* __restrict__ delta,
+                              const uint32_t* __restrict__ keep,
+                              __nv_bfloat16* __restrict__ dq,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, float* dq_acc,
+                              int* counters, int Tlen, int H, float scale,
+                              float inv_keep, int rotate) {
+  using C = BwdFusedTc<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = wg::align_1024(smem_raw);
   const uint32_t s0 = wg::smem_addr(smem);
-  const uint32_t sK = s0, sV = s0 + C::TILE;
+  const uint32_t sK = s0, sV = s0 + C::TILE, sDS = s0 + C::DST;
   uint32_t* pscratch = reinterpret_cast<uint32_t*>(smem + C::PSCRATCH);
   float* sStats = reinterpret_cast<float*>(smem + C::STATS);
-  const uint32_t sStatsAddr = s0 + C::STATS;
+  const uint32_t* sKeep = reinterpret_cast<const uint32_t*>(smem + C::KEEP);
+  const uint32_t sStatsAddr = s0 + C::STATS, sKeepAddr = s0 + C::KEEP;
   const uint32_t bar_kv = s0 + C::BARS, bar = bar_kv + 8;  // stage s: bar + 8 s
 
   const int tid = threadIdx.x;
-  const int wgi = tid >> 7;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int wgi = tid >> 7;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK; both: dQ
   const int t128 = tid & 127;
   const int warp = (tid >> 5) & 3;
   const int g = (tid & 31) >> 2, c = tid & 3;
-  const int key0 = blockIdx.x * C::BKEY;
+  // Blocks are launched in the order of their linear index, so the blocks of
+  // one (b, h) start in key-tile order (the dQ turns below rely on it).
+  const int kt = blockIdx.x, nkt = gridDim.x;
+  const int key0 = kt * C::BKEY;
   const int h = blockIdx.y, b = blockIdx.z;
   const long long row_stride = (long long)H * D;
   const long long base = (long long)b * Tlen * row_stride + (long long)h * D;
-  const long long stat_row = ((long long)b * H + h) * Tlen;
+  const long long bh = (long long)b * H + h;
+  const long long stat_row = bh * Tlen;
   const long long stat_plane = (long long)gridDim.z * H * Tlen;
   const int nqt = (Tlen + C::BQ - 1) / C::BQ;
+  const int kwords = (Tlen + 31) / 32;
   const int lrow = 16 * warp + g;  // this thread's key rows: lrow, lrow + 8
-  const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
+  // the dQ workspace of this (b, h): per query tile NB * 8 * 128 float4,
+  // entry (n * 8 + e) * 128 + t holding accumulator registers 4e .. 4e + 3
+  // of column block n of thread t of the warpgroup that computes it, so that
+  // a warp's adds cover 512 contiguous bytes
+  float4* ws_bh = reinterpret_cast<float4*>(dq_acc) + bh * nqt * C::NB * 8 * 128;
+  int* counter = counters + bh * nqt;
+  // The query tile of step `step` and this block's turn in adding its dQ
+  // partial to it.  With `rotate` (the host sets it when the blocks of one
+  // (b, h) fit on the card together, so that all of them run at once) block
+  // kt takes tile (kt + step) % nqt and its turn is `step`: every block
+  // starts on a tile of its own, and the turn before is block kt + 1's,
+  // which took the tile one step earlier.  Without it every block takes tile
+  // `step` and its turn is kt (key-tile order): a block then waits only for
+  // blocks launched before it.
+  auto tile_of = [&](int step) { return rotate ? (kt + step) % nqt : step; };
+  auto turn_of = [&](int step) { return rotate ? step : kt; };
 
-  // Q, dO of tile j into stage s by TMA (thread 0), its queries' m, l, delta
-  // by cp.async; stage s: Q at tile 2 + s, dO at tile 4 + s; m, l, delta at
-  // 3s, 3s+1, 3s+2 (in BQ floats)
-  auto load_q = [&](int j, int s) {
-    const int t0 = j * C::BQ;
+  // Q, dO of the tile of step `step` into stage s by TMA (thread 0), its
+  // queries' m, l, delta and keep words by cp.async (warpgroup 0); both
+  // complete on the stage's barrier (one arrival with the TMA bytes, one a
+  // thread of warpgroup 0 when its copies land).  Stage s: Q at tile 2 + s,
+  // dO at tile 4 + s; m, l, delta at 3s, 3s+1, 3s+2 (in BQ floats)
+  auto load_q = [&](int step, int s) {
+    const int t0 = tile_of(step) * C::BQ;
     if (tid == 0) {
       wg::mbar_expect_tx(bar + 8 * s, 2 * C::TILE);
       tma_tile<D, C::BQ>(s0 + (2 + s) * C::TILE, tm_q, bar + 8 * s, h, t0, b);
       tma_tile<D, C::BQ>(s0 + (4 + s) * C::TILE, tm_do, bar + 8 * s, h, t0, b);
     }
-    if (tid < 3 * C::BQ) {
-      const int which = tid / C::BQ, qq = tid - which * C::BQ;
-      const int t = t0 + qq;
-      const float* src = which == 0 ? stats + stat_row
-                         : which == 1 ? stats + stat_plane + stat_row
-                                      : delta + stat_row;
-      wg::cp_async4(sStatsAddr + ((3 * s + which) * C::BQ + qq) * 4,
-                    src + (t < Tlen ? t : 0), t < Tlen);
+    if (wgi == 0) {
+      constexpr int N = (DROP ? 5 : 3) * C::BQ;  // m, l, delta; keep words 0, 1
+#pragma unroll
+      for (int x = t128; x < N; x += 128) {
+        const int which = x / C::BQ, qq = x - which * C::BQ;
+        const int t = t0 + qq;
+        if (which < 3) {
+          const float* src = which == 0 ? stats + stat_row
+                             : which == 1 ? stats + stat_plane + stat_row
+                                          : delta + stat_row;
+          wg::cp_async4(sStatsAddr + ((3 * s + which) * C::BQ + qq) * 4,
+                        src + (t < Tlen ? t : 0), t < Tlen);
+        } else {
+          const int w = which - 3, kw = (key0 >> 5) + w;
+          const bool ok = t < Tlen && kw < kwords;
+          wg::cp_async4(sKeepAddr + ((2 * s + w) * C::BQ + qq) * 4,
+                        keep + (bh * kwords + (ok ? kw : 0)) * Tlen + (ok ? t : 0), ok);
+        }
+      }
+      wg::cp_async_mbar_arrive(bar + 8 * s);
     }
-    wg::cp_async_commit();
   };
 
   if (tid == 0) {
     wg::mbar_init(bar_kv, 1);
-    wg::mbar_init(bar, 1);
-    wg::mbar_init(bar + 8, 1);
+    wg::mbar_init(bar, 1 + 128);
+    wg::mbar_init(bar + 8, 1 + 128);
     wg::mbar_init_fence();
   }
   __syncthreads();
@@ -854,49 +980,128 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   load_q(0, 0);
 
-  // a key beyond T gets bias -inf, hence P = 0 in every column
-  float bk[2];
+  // the bias times log2(e) (or 0, `log2e_for`), as `prob` takes it; a key
+  // beyond T gets -inf, hence P = 0 in every column
+  const float lg = log2e_for(stats[stat_row]);
+  const float scale2 = scale * lg;
+  float bk2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = key0 + lrow + 8 * r;
-    bk[r] = t < Tlen ? bias[(long long)b * Tlen + t] : -INFINITY;
+    bk2[r] = t < Tlen ? bias[(long long)b * Tlen + t] * lg : -INFINITY;
   }
   float acc[C::NB][32];  // dV (warpgroup 0) or dK (warpgroup 1)
-  float sc[32];          // S^T (warpgroup 0) or dP_d^T (warpgroup 1)
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    sc[i] = 0.f;
+  for (int i = 0; i < 32; ++i)
 #pragma unroll
     for (int n = 0; n < C::NB; ++n) acc[n][i] = 0.f;
-  }
   wg::mbar_wait(bar_kv, 0);
 
-  for (int j = 0; j < nqt; ++j) {
-    const int s = j & 1;
-    const int q0 = j * C::BQ;
-    wg::mbar_wait(bar + 8 * s, (j >> 1) & 1);
-    wg::cp_async_wait<0>();
-    __syncthreads();
-    if (j + 1 < nqt) load_q(j + 1, s ^ 1);
+  // The dQ partial of the tile of step s is added during step s + 1:
+  // warpgroup 1's thread 0 waits for the turn while its dP^T product runs,
+  // barrier 5 passes the turn to warpgroup 1 and barrier 4 to warpgroup 0,
+  // which adds its share after issuing dV's product.  The first turn stores,
+  // later ones add with `red` (the turn is exclusive, so the order of the
+  // sums is fixed), and the last adds its partial to the sum it loads and
+  // rounds to bf16 into dq.  Thread 0 hands the turn on after barrier 3, by
+  // which every thread's adds are done, while dQ's product runs.
+  auto wait_for = [&](int step) {
+    if (turn_of(step) > 0) wait_turn(counter + tile_of(step), turn_of(step));
+  };
+  auto add_partial = [&](int step, int w, float (&part)[C::NQB][32]) {
+    const int turn = turn_of(step), i = tile_of(step);
+    float4* tile = ws_bh + (long long)i * C::NB * 8 * 128 + t128;
+#pragma unroll
+    for (int m = 0; m < C::NQB; ++m) {
+      const int n = w == 1 ? m : C::NQB + m;
+      if (n >= C::NB) continue;
+      float4* dst = tile + n * 8 * 128;
+      if (turn + 1 < nkt) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float4 v = make_float4(part[m][4 * e], part[m][4 * e + 1],
+                                       part[m][4 * e + 2], part[m][4 * e + 3]);
+          if (turn == 0)
+            __stcg(dst + e * 128, v);
+          else
+            atomicAdd(dst + e * 128, v);
+        }
+        continue;
+      }
+      float4 sum[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        sum[e] = turn > 0 ? __ldcg(dst + e * 128) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = i * C::BQ + lrow + 8 * r;
+        if (t >= Tlen) continue;
+        __nv_bfloat16* qrow = dq + base + (long long)t * row_stride;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int col = 64 * n + 8 * e + 2 * c;
+          if (col < D)
+            *reinterpret_cast<uint32_t*>(qrow + col) =
+                wg::pack_bf16((r ? sum[e].z : sum[e].x) + part[m][4 * e + 2 * r],
+                              (r ? sum[e].w : sum[e].y) + part[m][4 * e + 2 * r + 1]);
+        }
+      }
+    }
+  };
+  // after a barrier that every thread passed after its adds
+  auto hand_on = [&](int step) {
+    if (tid == 0 && turn_of(step) + 1 < nkt) red_release_gpu_add(counter + tile_of(step), 1);
+  };
+
+  // The steps overlap: a step issues its first product (S^T or dP^T) while
+  // the previous step's dV, dK and dQ products may still run, waits for
+  // those (wait<1>) and adds the previous dQ partial under the new product.
+  // Stage (step + 1) % 2 is refilled once both warpgroups are past their
+  // wait<1> (barrier 2).
+  float dqa[C::NQB][32];  // this warpgroup's column blocks of a tile's dQ partial
+  // A fragments: P_d^T (warpgroup 0) or dS^T (1), read by the products a
+  // step leaves running, so held until the next step's wait<1>
+  uint32_t fa[4][4];
+#pragma unroll
+  for (int m = 0; m < C::NQB; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[m][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fa[kk][0] = fa[kk][1] = fa[kk][2] = fa[kk][3] = 0u;
+  for (int step = 0; step < nqt; ++step) {
+    const int s = step & 1;
+    const int q0 = tile_of(step) * C::BQ;
+    wg::mbar_wait(bar + 8 * s, (step >> 1) & 1);
     const uint32_t sQs = s0 + (2 + s) * C::TILE, sDOs = s0 + (4 + s) * C::TILE;
     float* st = sStats + 3 * s * C::BQ;  // m, l, delta of the tile's queries
     // only the last tile has query slots beyond T (their statistics are 0)
     const bool full = q0 + C::BQ <= Tlen;
-    uint32_t fa[4][4];  // A fragments: P_d^T (warpgroup 0) or dS^T (1)
+    float sc[32];  // S^T (warpgroup 0) or dP_d^T (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+
+    // S^T = K Q^T (warpgroup 0), dP_d^T = V dO^T (warpgroup 1)
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < C::DP / 16; ++kk)
+      wg::mma_ss(sc, wg::desc_k(wgi == 0 ? sK : sV, C::BKEY, kk),
+                 wg::desc_k(wgi == 0 ? sQs : sDOs, C::BQ, kk), kk > 0);
+    wg::commit();
+    wg::fence_regs(sc);
+    wg::wait<1>();  // the previous step's products
+#pragma unroll
+    for (int m = 0; m < C::NQB; ++m) wg::fence_regs(dqa[m]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::fence_regs(fa[kk]);
 
     if (wgi == 0) {
-      // S^T = K Q^T
-      wg::fence();
-#pragma unroll
-      for (int kk = 0; kk < C::DP / 16; ++kk)
-        wg::mma_ss(sc, wg::desc_k(sK, C::BKEY, kk),
-                          wg::desc_k(sQs, C::BQ, kk), kk > 0);
-      wg::commit();
       wg::wait<0>();
       wg::fence_regs(sc);
-      wg::barrier_sync(2, 256);  // l has become 1 / l
+      wg::barrier_sync(2, 256);  // m has become lse2; warpgroup 1 is past its wait<1>
+      if (step + 1 < nqt) load_q(step + 1, s ^ 1);
       // P^T and P_d^T; P^T goes to warpgroup 1 as bf16 pairs, a dropped entry
       // with its sign bit set (P >= 0, so the sign carries the mask)
+      const uint32_t* kp = sKeep + (2 * s + (warp >> 1)) * C::BQ;  // this warp's key word
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -905,21 +1110,15 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = 8 * i + 2 * c + e;  // query q0 + col
-            const float sv = __fadd_rn(__fmul_rn(sc[4 * i + 2 * r + e], scale), bk[r]);
-            float p = __expf(sv - st[col]) * st[C::BQ + col];
+            float p = prob(sc[4 * i + 2 * r + e], scale2, bk2[r], st[col]);
             if (!full && q0 + col >= Tlen) p = 0.f;
             pv[e] = p;
             pd[e] = p;
             if constexpr (DROP) {
-              // key kr is word kr % 4 = g % 4 of group kr / 4
-              const int kr = key0 + lrow + 8 * r;
-              const uint4 w = dropout_bits(key, (uint32_t)(q0 + col), (uint32_t)(kr >> 2));
-              const int word = g & 3;
-              const uint32_t bits = word == 0 ? w.x : word == 1 ? w.y : word == 2 ? w.z : w.w;
-              const bool keep = bits >= thresh;
+              const bool kept = (kp[col] >> ((lrow + 8 * r) & 31)) & 1u;
               p = round_bf16_alu(p);
-              pd[e] = keep ? p * inv_keep : 0.f;  // rounded by the packing
-              pv[e] = keep ? p : -p;
+              pd[e] = kept ? p * inv_keep : 0.f;  // rounded by the packing
+              pv[e] = kept ? p : -p;
             }
           }
           const uint32_t packed = wg::pack_bf16(pv[0], pv[1]);
@@ -932,25 +1131,28 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       wg::fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int n = 0; n < C::NB; ++n)
-          wg::mma_rs(acc[n], fa[kk], wg::desc_mn(sDOs, C::BQ, kk, n), 1);
+        wg::mma_rs_wide<64 * C::NB>(&acc[0][0], fa[kk], wg::desc_mn_wide(sDOs, C::BQ, kk, 0));
       wg::commit();
-      wg::wait<0>();
+      if (step > 0) {
+        wg::barrier_sync(4, 256);  // warpgroup 1's thread 0 has seen the turn
+        add_partial(step - 1, 0, dqa);
+      }
     } else {
-      // dP_d^T = V dO^T; while it runs, l becomes 1 / l for warpgroup 0
-      wg::fence();
-#pragma unroll
-      for (int kk = 0; kk < C::DP / 16; ++kk)
-        wg::mma_ss(sc, wg::desc_k(sV, C::BKEY, kk),
-                          wg::desc_k(sDOs, C::BQ, kk), kk > 0);
-      wg::commit();
-      if (t128 < C::BQ) st[C::BQ + t128] = 1.f / st[C::BQ + t128];
+      if (t128 < C::BQ)  // m becomes lse2 (a query beyond T: -inf, its P is set to 0)
+        st[t128] = row_lse2(st[t128], st[C::BQ + t128], lg);
       wg::barrier_arrive(2, 256);
+      if (step > 0) {
+        if (t128 == 0) wait_for(step - 1);
+        wg::barrier_sync(5, 128);
+        wg::barrier_arrive(4, 256);
+        add_partial(step - 1, 1, dqa);
+      }
       wg::wait<0>();
       wg::fence_regs(sc);
       wg::barrier_sync(1, 256);
-      // dS^T = P^T (dP^T - delta) * scale, dP^T taken back through dropout
+      // dS^T = P^T (dP^T - delta) * scale, dP^T taken back through dropout;
+      // the packed pairs also go to a swizzled tile (row = key, 16-byte chunk
+      // i of the row at i ^ (row % 8)) for dQ's product
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -968,24 +1170,56 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             }
             ds[e] = (p * (dpv - st[2 * C::BQ + col])) * scale;  // rounded by the packing
           }
-          fa[i >> 1][2 * (i & 1) + r] = wg::pack_bf16(ds[0], ds[1]);
+          const uint32_t packed = wg::pack_bf16(ds[0], ds[1]);
+          fa[i >> 1][2 * (i & 1) + r] = packed;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sDS + (lrow + 8 * r) * 128 +
+                                                          ((i ^ g) << 4) + 4 * c),
+                       "r"(packed)
+                       : "memory");
         }
+      wg::fence_proxy_async();
 
       // dK += dS^T Q
       wg::fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int n = 0; n < C::NB; ++n)
-          wg::mma_rs(acc[n], fa[kk], wg::desc_mn(sQs, C::BQ, kk, n), 1);
+        wg::mma_rs_wide<64 * C::NB>(&acc[0][0], fa[kk], wg::desc_mn_wide(sQs, C::BQ, kk, 0));
       wg::commit();
-      wg::wait<0>();
     }
+    wg::barrier_sync(3, 256);  // dS^T is in shared memory for the tensor cores
+
+    // the tile's dQ partial dS K: column blocks 2m + 1 - wgi
+    wg::fence();
+    if (wgi == 1) {
 #pragma unroll
-    for (int n = 0; n < C::NB; ++n) wg::fence_regs(acc[n]);
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_ss_mn_wide<64 * C::NQB>(&dqa[0][0], wg::desc_mn(sDS, 64, kk, 0),
+                                        wg::desc_mn_wide(sK, C::BKEY, kk, 0), kk > 0);
+    } else if constexpr (C::NB > C::NQB) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_ss_mn_wide<64 * (C::NB - C::NQB)>(&dqa[0][0], wg::desc_mn(sDS, 64, kk, 0),
+                                                  wg::desc_mn_wide(sK, C::BKEY, kk, C::NQB),
+                                                  kk > 0);
+    }
+    wg::commit();
+#pragma unroll
+    for (int m = 0; m < C::NQB; ++m) wg::fence_regs(dqa[m]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wg::fence_regs(fa[kk]);
+    // every thread's adds of the previous tile came before barrier 3
+    if (step > 0) hand_on(step - 1);
   }
+  wg::wait<0>();
+#pragma unroll
+  for (int n = 0; n < C::NB; ++n) wg::fence_regs(acc[n]);
+#pragma unroll
+  for (int m = 0; m < C::NQB; ++m) wg::fence_regs(dqa[m]);
+  if (tid == 0) wait_for(nqt - 1);
+  __syncthreads();
+  add_partial(nqt - 1, wgi, dqa);
+  __syncthreads();
+  hand_on(nqt - 1);
 
   __nv_bfloat16* dst = wgi == 0 ? dv : dk;
 #pragma unroll
@@ -1006,46 +1240,59 @@ attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// The current device's number of SMs (0 where it cannot be read).
+inline int sm_count() {
+  static std::atomic<int> counts[64];
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  n = counts[dev].load();
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+    counts[dev].store(n);
+  return n;
+}
+
 // static: each library keeps its own record of the attribute it set
 template <int D, bool DROP>
 static int launch_attention_bwd_tc(const BwdArgs& a) {
-  using CQ = BwdQTc<D>;
-  using CK = BwdKVTc<D>;
-  static_assert(CQ::SMEM <= kMaxSmemBytes && CK::SMEM <= kMaxSmemBytes,
+  using CD = BwdDeltaTc<D>;
+  using CF = BwdFusedTc<D>;
+  static_assert(CD::SMEM <= kMaxSmemBytes && CF::SMEM <= kMaxSmemBytes,
                 "backward tiles do not fit");
-  auto dq_kern = attention_bwd_dq_tc_kernel<D, DROP>;
-  auto dkv_kern = attention_bwd_dkv_tc_kernel<D, DROP>;
-  static std::atomic<unsigned long long> dq_smem_set{0}, dkv_smem_set{0};
-  cudaError_t err = set_max_dynamic_smem(dq_kern, CQ::SMEM, dq_smem_set);
+  auto delta_kern = attention_bwd_delta_tc_kernel<D, DROP>;
+  auto fused_kern = attention_bwd_fused_tc_kernel<D, DROP>;
+  static std::atomic<unsigned long long> delta_smem_set{0}, fused_smem_set{0};
+  cudaError_t err = set_max_dynamic_smem(delta_kern, CD::SMEM, delta_smem_set);
   if (err != cudaSuccess) return (int)err;
-  err = set_max_dynamic_smem(dkv_kern, CK::SMEM, dkv_smem_set);
+  err = set_max_dynamic_smem(fused_kern, CF::SMEM, fused_smem_set);
   if (err != cudaSuccess) return (int)err;
-  // tensor maps: 128-row tiles of Q and dO and key tiles for the dq kernel,
-  // 64-row tiles of all four for the dkv kernel
-  CUtensorMap q128, do128, kq, vq, q64, k64, v64, do64;
+  // tensor maps: 128-row tiles of Q and dO and key tiles for the delta pass,
+  // 64-row tiles of all four for the fused pass
+  CUtensorMap q128, do128, kd, vd, q64, k64, v64, do64;
   const int B = a.B, T = a.T, H = a.H;
-  if (int e = tile_map(&q128, a.q, B, T, H, D, CQ::BQ)) return e;
-  if (int e = tile_map(&do128, a.dout, B, T, H, D, CQ::BQ)) return e;
-  if (int e = tile_map(&kq, a.k, B, T, H, D, CQ::BK)) return e;
-  if (int e = tile_map(&vq, a.v, B, T, H, D, CQ::BK)) return e;
+  if (int e = tile_map(&q128, a.q, B, T, H, D, CD::BQ)) return e;
+  if (int e = tile_map(&do128, a.dout, B, T, H, D, CD::BQ)) return e;
+  if (int e = tile_map(&kd, a.k, B, T, H, D, CD::BK)) return e;
+  if (int e = tile_map(&vd, a.v, B, T, H, D, CD::BK)) return e;
   if (int e = tile_map(&q64, a.q, B, T, H, D, 64)) return e;
   if (int e = tile_map(&do64, a.dout, B, T, H, D, 64)) return e;
   if (int e = tile_map(&k64, a.k, B, T, H, D, 64)) return e;
   if (int e = tile_map(&v64, a.v, B, T, H, D, 64)) return e;
   const float scale = 1.0f / sqrtf((float)D);
   using bf = __nv_bfloat16;
-  dim3 grid_q((T + CQ::BQ - 1) / CQ::BQ, H, B);
-  dq_kern<<<grid_q, CQ::THREADS, CQ::SMEM, a.stream>>>(
-      q128, kq, vq, do128, a.bias, a.seeds, a.stats, static_cast<bf*>(a.dq),
-      a.delta, T, H, scale, a.thresh, a.inv_keep);
+  dim3 grid_d((T + CD::BQ - 1) / CD::BQ, H, B);
+  delta_kern<<<grid_d, CD::THREADS, CD::SMEM, a.stream>>>(
+      q128, kd, vd, do128, a.bias, a.seeds, a.stats, a.delta, a.keep, a.counters,
+      T, H, scale, a.thresh, a.inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // reads the delta the first kernel wrote: same stream, so ordered after it
-  dim3 grid_k((T + CK::BKEY - 1) / CK::BKEY, H, B);
-  dkv_kern<<<grid_k, CK::THREADS, CK::SMEM, a.stream>>>(
-      q64, k64, v64, do64, a.bias, a.seeds, a.stats, a.delta,
-      static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), T, H, scale, a.thresh,
-      a.inv_keep);
+  // reads delta, the keep words and the zeroed counters the delta pass
+  // wrote: same stream, so ordered after it.  The key tile is the fastest
+  // grid index (the dQ adds rely on it).
+  dim3 grid_f((T + CF::BKEY - 1) / CF::BKEY, H, B);
+  fused_kern<<<grid_f, CF::THREADS, CF::SMEM, a.stream>>>(
+      q64, k64, v64, do64, a.bias, a.stats, a.delta, a.keep, static_cast<bf*>(a.dq),
+      static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.dq_acc, a.counters, T, H,
+      scale, a.inv_keep, grid_f.x <= (unsigned)sm_count() ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
@@ -1065,23 +1312,30 @@ int dispatch_attention_bwd_tc(const BwdArgs& a, int D) {
 }  // namespace emotts
 
 // q, k, v, dout, dq, dk, dv: contiguous, 16-byte aligned (B, T, H, D) in
-// fp32 (is_bf16 = 0) or bf16 (1); bias (B, T) fp32; stats
-// (2, B, H, T) fp32 as the forward kernel wrote them; delta (B, H, T) fp32
-// scratch; seeds (B,) int32 (may be null when drop == 0).  D in {32, 64, 96,
-// 128, 192, 256}.  Two launches on `stream`, no synchronisation; returns 0 or
-// an error code.
+// fp32 (is_bf16 = 0) or bf16 (1); bias (B, T) fp32; stats (2, B, H, T) fp32
+// as the forward kernel wrote them; delta (B, H, T) fp32 scratch; seeds (B,)
+// int32 (may be null when drop == 0).  bf16 only: keep (B, H, ceil(T / 32),
+// T) uint32 scratch (may be null when drop == 0), dq_acc (B, H,
+// ceil(T / 64), 64 * ceil(D / 64) * 64) fp32 scratch, 16-byte aligned,
+// counters (B, H, ceil(T / 64)) int32 scratch; null for fp32.  D in
+// {32, 64, 96, 128, 192, 256}.  Two launches on `stream`, no
+// synchronisation; returns 0 or an error code.
 extern "C" int emotts_attention_bwd(
     const void* q, const void* k, const void* v, const float* bias,
     const int* seeds, const float* stats, const void* dout,
-    void* dq, void* dk, void* dv, float* delta, int B, int T, int H, int D,
-    int is_bf16, int drop, unsigned int thresh, float inv_keep, void* stream) {
+    void* dq, void* dk, void* dv, float* delta, void* keep, float* dq_acc,
+    int* counters, int B, int T, int H, int D, int is_bf16, int drop,
+    unsigned int thresh, float inv_keep, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535)
     return emotts::kErrUnsupportedShape;
   if (drop && seeds == nullptr) return emotts::kErrUnsupportedShape;
+  if (is_bf16 && (dq_acc == nullptr || counters == nullptr || (drop && keep == nullptr)))
+    return emotts::kErrUnsupportedShape;
   const emotts::BwdArgs a{q, k, v, bias, seeds, stats, dout, dq, dk, dv,
-                          delta, B, T, H, thresh, inv_keep,
+                          delta, static_cast<uint32_t*>(keep), dq_acc, counters,
+                          B, T, H, thresh, inv_keep,
                           static_cast<cudaStream_t>(stream)};
-  if (!emotts::aligned16({q, k, v, dout, dq, dk, dv})) return emotts::kErrMisaligned;
+  if (!emotts::aligned16({q, k, v, dout, dq, dk, dv, dq_acc})) return emotts::kErrMisaligned;
   if (is_bf16)
     return drop ? emotts::dispatch_attention_bwd_tc<true>(a, D)
                 : emotts::dispatch_attention_bwd_tc<false>(a, D);

@@ -18,11 +18,12 @@
 //  - K-major (the 64 columns are the reduction dimension): a 16-deep step
 //    starts 32 bytes further inside a block, and every fourth step moves to
 //    the next block; 8-row groups are 1024 bytes apart;
-//  - MN-major (the columns are the output dimension N, rows the reduction):
-//    a 16-deep step starts 16 rows (2048 bytes) further down; an instruction
-//    covers one 64-wide block (N = 64), so a 192-wide output is three
-//    instructions, and 8-row groups along the reduction are again 1024 bytes
-//    apart.
+//  - MN-major (the columns are the output dimension N, or M of an A operand
+//    read without a transpose; rows the reduction): a 16-deep step starts 16
+//    rows (2048 bytes) further down; an instruction of N = 64 covers one
+//    64-wide block, a wider one several, the blocks `rows * 128` bytes apart
+//    (the descriptor's leading byte offset), and 8-row groups along the
+//    reduction are again 1024 bytes apart.
 // (Both were checked on the card against a host product, with the register
 // A operand below, before the kernels were built on them.)
 //
@@ -190,6 +191,107 @@ __device__ __forceinline__ void mma_tf32_rs(float (&d)[64], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// Products whose N spans several 64-column blocks of an MN-major B tile in
+// one instruction (N = 64 x blocks): the blocks lie `rows * 128` bytes apart,
+// the descriptor's leading byte offset (`desc_mn_wide`).  d is the blocks'
+// accumulators one after the other (32 registers a block, as the m64n64
+// layout above), a is the register A operand or A's descriptor.
+__device__ __forceinline__ uint64_t desc_mn_wide(uint32_t tile, int rows, int k, int n) {
+  const uint32_t addr = tile + (uint32_t)(n * rows * 128 + k * 2048);
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((rows * 128) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+template <int N>
+__device__ __forceinline__ void mma_rs_wide(float* d, const uint32_t* a, uint64_t b);
+template <int N>
+__device__ __forceinline__ void mma_ss_mn_wide(float* d, uint64_t a, uint64_t b, int scale_d);
+template <>
+__device__ __forceinline__ void mma_rs_wide<64>(float* d, const uint32_t* a, uint64_t b) {
+  mma_rs(*reinterpret_cast<float(*)[32]>(d), a, b, 1);
+}
+template <>
+__device__ __forceinline__ void mma_rs_wide<128>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : EMOTTS_ACC8(0), EMOTTS_ACC8(8), EMOTTS_ACC8(16), EMOTTS_ACC8(24),
+        EMOTTS_ACC8(32), EMOTTS_ACC8(40), EMOTTS_ACC8(48), EMOTTS_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs_wide<192>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : EMOTTS_ACC8(0), EMOTTS_ACC8(8), EMOTTS_ACC8(16), EMOTTS_ACC8(24),
+        EMOTTS_ACC8(32), EMOTTS_ACC8(40), EMOTTS_ACC8(48), EMOTTS_ACC8(56),
+        EMOTTS_ACC8(64), EMOTTS_ACC8(72), EMOTTS_ACC8(80), EMOTTS_ACC8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs_wide<256>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : EMOTTS_ACC8(0), EMOTTS_ACC8(8), EMOTTS_ACC8(16), EMOTTS_ACC8(24),
+        EMOTTS_ACC8(32), EMOTTS_ACC8(40), EMOTTS_ACC8(48), EMOTTS_ACC8(56),
+        EMOTTS_ACC8(64), EMOTTS_ACC8(72), EMOTTS_ACC8(80), EMOTTS_ACC8(88),
+        EMOTTS_ACC8(96), EMOTTS_ACC8(104), EMOTTS_ACC8(112), EMOTTS_ACC8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_ss_mn_wide<64>(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}"
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : EMOTTS_ACC8(0), EMOTTS_ACC8(8), EMOTTS_ACC8(16), EMOTTS_ACC8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void mma_ss_mn_wide<128>(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : EMOTTS_ACC8(0), EMOTTS_ACC8(8), EMOTTS_ACC8(16), EMOTTS_ACC8(24),
+        EMOTTS_ACC8(32), EMOTTS_ACC8(40), EMOTTS_ACC8(48), EMOTTS_ACC8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 #undef EMOTTS_ACC8
 
 // Two fp32 values rounded to bf16 (to nearest, ties to even) in one register,
@@ -269,6 +371,12 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
+// Count an arrival on barrier `bar` once this thread's earlier cp.async
+// copies have landed (the barrier's expected count includes it).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -284,6 +392,13 @@ __device__ __forceinline__ void barrier_sync(int id, int threads) {
 }
 __device__ __forceinline__ void barrier_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Orders this thread's ordinary shared-memory stores before later reads by
+// the tensor cores (`wgmma`'s operands are read through the async proxy);
+// every writer executes it, then a barrier hands the tile over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace wg

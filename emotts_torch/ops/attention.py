@@ -17,13 +17,17 @@ and backward, with every product accumulated in fp32:
 
 The forward kernel is ``csrc/attention.cu``: one block per (batch, head,
 query tile), an online softmax over key tiles.  The backward is
-``csrc/attention_bwd.cu``: two launches without atomics (blocks over query
-tiles for dQ, blocks over key tiles for dK and dV), so a repeated call gives
-the same bits.  Nothing of size T×T reaches device memory either way, and the
-module's own (B, T, H, D) layout is read with strides.  When a gradient is
-wanted the forward also writes each row's softmax maximum and sum (2·B·H·T
-floats) and the backward forms P from them; rowsum(dP ⊙ P) is summed from the
-same rounded P in a sweep of its own, as the reference sums it.  Both kernels
+``csrc/attention_bwd.cu``, two launches a call in either dtype.  bf16: a
+delta pass over query tiles, then a fused pass over key tiles that forms P
+and dS once per tile pair, keeps dK and dV in registers and adds each query
+tile's dQ partial into an fp32 workspace in a fixed key-tile order.  fp32:
+blocks over query tiles for dQ, blocks over key tiles for dK and dV.  Neither
+uses an atomic whose order varies, so a repeated call gives the same bits.
+Nothing of size T×T reaches device memory either way, and the module's own
+(B, T, H, D) layout is read with strides.  When a gradient is wanted the
+forward also writes each row's softmax maximum and sum (2·B·H·T floats) and
+the backward forms P from them; rowsum(dP ⊙ P) is summed from the same
+rounded P in a pass of its own, as the reference sums it.  Both kernels
 are bound by operations and run every product on the tensor cores: bf16 on
 ``wgmma`` (building blocks in ``csrc/wgmma.cuh``), fp32 on ``mma.sync`` with
 TF32 operands, each product as three (3×TF32: hi·hi + hi·lo + lo·hi of each
@@ -53,13 +57,16 @@ from emotts_torch.ops import _build
 
 # number of times the forward wrapper launched its CUDA kernel
 launch_count = 0
-# number of CUDA launches the backward wrapper made (two per call)
+# number of CUDA launches the backward wrapper made (BWD_LAUNCHES_PER_CALL
+# per call)
 bwd_launch_count = 0
 # the fp32 instances' share of the two counts above
 fp32_launch_count = 0
 fp32_bwd_launch_count = 0
 
 _SUPPORTED_D = (32, 64, 96, 128, 192, 256)
+# CUDA launches of one backward call, the same in both dtypes: bf16 the delta
+# pass and the fused pass, fp32 the dq kernel and the dkv kernel
 BWD_LAUNCHES_PER_CALL = 2
 
 _HEAD_MIX = -1640531527  # golden-ratio constant decorrelating the heads
@@ -185,7 +192,7 @@ def _entry(name: str, library: str, argtypes):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_P] * 7 + [_I] * 6 + [ctypes.c_uint32, ctypes.c_float, _P]
-_BWD_ARGTYPES = [_P] * 11 + [_I] * 6 + [ctypes.c_uint32, ctypes.c_float, _P]
+_BWD_ARGTYPES = [_P] * 14 + [_I] * 6 + [ctypes.c_uint32, ctypes.c_float, _P]
 
 
 def _check_inputs(q, k, v, bias, seeds, rate, extra=()) -> None:
@@ -279,8 +286,12 @@ def attention_forward(q, k, v, bias, seeds=None, rate: float = 0.0,
 
 def attention_backward(q, k, v, bias, seeds, stats, dout, rate: float = 0.0):
     """The backward wrapper: (dq, dk, dv) from the forward's inputs, its row
-    statistics, and the output's gradient.  CUDA tensors go
-    through the two kernels or raise; CPU tensors take the plain version."""
+    statistics, and the output's gradient.  CUDA tensors go through the two
+    kernels or raise; CPU tensors take the plain version.  Besides delta, the
+    bf16 kernels take scratch of their own: the keep bits (B, H, ⌈T/32⌉, T)
+    words at rate > 0, the fp32 dQ workspace (64 × D rounded up to whole
+    64-column blocks, per (B, H, 64-query tile)) and the dQ adds' counters
+    (B, H, ⌈T/64⌉), which the delta pass sets to 0."""
     _check_inputs(q, k, v, bias, seeds, rate, extra=[("dout", dout)])
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, bias, dout, seeds, rate)
@@ -293,15 +304,27 @@ def attention_backward(q, k, v, bias, seeds, stats, dout, rate: float = 0.0):
                          "tensor the forward kernel wrote")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    fn = _entry("emotts_attention_bwd", "attention_bwd", _BWD_ARGTYPES)
     drop = rate > 0.0
+    bf16 = q.dtype == torch.bfloat16
+    keep = dq_acc = counters = None
+    if bf16:
+        if drop:  # uint32 words, held as int32
+            keep = torch.empty((b, h, (t + 31) // 32, t), dtype=torch.int32, device=q.device)
+        # per 64-query tile, 64 rows of D rounded up to whole 64-column blocks
+        dq_acc = torch.empty((b, h, (t + 63) // 64, 64 * ((d + 63) // 64 * 64)),
+                             dtype=torch.float32, device=q.device)
+        counters = torch.empty((b, h, (t + 63) // 64), dtype=torch.int32, device=q.device)
+    fn = _entry("emotts_attention_bwd", "attention_bwd", _BWD_ARGTYPES)
     global bwd_launch_count, fp32_bwd_launch_count
     with _launch_device(q):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                   seeds.data_ptr() if drop else None,
                   stats.data_ptr(), dout.data_ptr(), dq.data_ptr(),
                   dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                  b, t, h, d, int(q.dtype == torch.bfloat16), int(drop),
+                  None if keep is None else keep.data_ptr(),
+                  None if dq_acc is None else dq_acc.data_ptr(),
+                  None if counters is None else counters.data_ptr(),
+                  b, t, h, d, int(bf16), int(drop),
                   dropout_threshold(rate), 1.0 / (1.0 - rate),
                   torch.cuda.current_stream().cuda_stream)
     _build.check(code, "emotts_attention_bwd")

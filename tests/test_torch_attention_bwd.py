@@ -9,6 +9,9 @@ themselves are held against these plain versions on the card by
 chip_smoke.py.
 """
 
+import functools
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -166,3 +169,131 @@ def test_fully_padded_row_has_a_finite_gradient():
     np.testing.assert_allclose(dv[2].numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
     # padded keys of the half-padded row get no probability, hence no dV
     assert torch.equal(dv[1, 24:], torch.zeros_like(dv[1, 24:]))
+
+
+# --------------------------------------------------------------------------
+# The bf16 kernels' schedule (csrc/attention_bwd.cu), emulated at toy size
+# --------------------------------------------------------------------------
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _pack_keep_words(keep):
+    """(B, H, T, T) keep mask -> the delta pass's words (B, H, ⌈T/32⌉, T):
+    bit key % 32 of word key // 32 of query q."""
+    b, h, t, _ = keep.shape
+    kw = (t + 31) // 32
+    padded = torch.zeros(b, h, t, 32 * kw, dtype=torch.int64)
+    padded[..., :t] = keep.long()
+    bits = padded.reshape(b, h, t, kw, 32) << torch.arange(32)
+    return bits.sum(-1).transpose(2, 3)  # disjoint bits: the sum is the OR
+
+
+def _emulated_schedule(q, k, v, bias, dout, seeds, rate, bq=16, bk=32):
+    """The bf16 backward as the kernels schedule it, in fp32 with the
+    kernels' bf16 roundings: a delta pass over the key tiles (rowsum(dP * P)
+    from the rounded P, and at rate > 0 the keep bits packed into words),
+    then one block per key tile that forms S^T, P^T, dP^T and dS^T once per
+    query tile, accumulates dV and dK, and hands each query tile's dQ
+    partial on in key-tile order.  P comes from the forward's row
+    statistics (maximum m and sum l), as the kernels form it."""
+    b, t, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    inv_keep = 1.0 / (1.0 - rate)
+    qf, kf, vf, gf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v, dout))
+    s_all = qf @ kf.transpose(-1, -2) * scale + bias[:, None, None, :]
+    m = s_all.max(-1).values
+    inv_l = 1.0 / torch.exp(s_all - m[..., None]).sum(-1)
+    nkt, nqt = -(-t // bk), -(-t // bq)
+
+    # delta pass: a sweep over the key tiles; the keep words
+    words = _pack_keep_words(ta.philox_keep_mask(seeds, h, t, rate)) if rate else None
+    delta = torch.zeros(b, h, t)
+    for j in range(nkt):
+        ks = slice(j * bk, min((j + 1) * bk, t))
+        p = _bf16(torch.exp(qf @ kf[:, :, ks].transpose(-1, -2) * scale
+                            + bias[:, None, None, ks] - m[..., None]) * inv_l[..., None])
+        dp = gf @ vf[:, :, ks].transpose(-1, -2)
+        if rate:
+            keys = torch.arange(ks.start, ks.stop)
+            kept = ((words[:, :, keys // 32, :].transpose(-1, -2) >> (keys % 32)) & 1).bool()
+            dp = torch.where(kept, dp * inv_keep, torch.zeros(()))
+        delta += (dp * p).sum(-1)
+
+    # fused pass: one block per key tile, a sweep over the query tiles
+    dk, dv = torch.zeros(b, h, t, d), torch.zeros(b, h, t, d)
+    partials = [[None] * nqt for _ in range(nkt)]
+    for j in range(nkt):
+        ks = slice(j * bk, min((j + 1) * bk, t))
+        keys = torch.arange(ks.start, ks.stop)
+        for i in range(nqt):
+            qs = slice(i * bq, min((i + 1) * bq, t))
+            st = kf[:, :, ks] @ qf[:, :, qs].transpose(-1, -2) * scale  # keys x queries
+            st = st + bias[:, None, ks, None]
+            pt = _bf16(torch.exp(st - m[:, :, None, qs]) * inv_l[:, :, None, qs])
+            dpt = vf[:, :, ks] @ gf[:, :, qs].transpose(-1, -2)
+            pdt = pt
+            if rate:
+                kept = ((words[:, :, keys // 32, qs] >> (keys % 32)[:, None]) & 1).bool()
+                pdt = torch.where(kept, _bf16(pt * inv_keep), torch.zeros(()))
+                dpt = torch.where(kept, dpt * inv_keep, torch.zeros(()))
+            dst = _bf16(pt * (dpt - delta[:, :, None, qs]) * scale)
+            dv[:, :, ks] += pdt @ gf[:, :, qs]
+            dk[:, :, ks] += dst @ qf[:, :, qs]
+            partials[j][i] = dst.transpose(-1, -2) @ kf[:, :, ks]
+    # each query tile's partials added in key-tile order
+    dq = torch.cat([functools.reduce(torch.add, (partials[j][i] for j in range(nkt)))
+                    for i in range(nqt)], dim=2)
+    return tuple(x.permute(0, 2, 1, 3).to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def _one_key_inputs(t):
+    """bf16 inputs with a half-padded, a fully padded and a one-key example:
+    the last attends to key 3 alone, where a delta taken from the rounded
+    output fails (the cancellation in dP - delta is exact only from P)."""
+    q, k, v, bias, g = _inputs(b=4, t=t, d=32, seed=t)
+    bias[3, :] = -1e9
+    bias[3, 3] = 0.0
+    return (*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+            torch.from_numpy(bias), torch.from_numpy(g).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t", [33, 48])
+def test_emulated_bf16_schedule_matches_the_plain_backward(t, rate):
+    q, k, v, bias, g = _one_key_inputs(t)
+    seeds = torch.tensor([4, -9, 2 ** 31 - 1, 77], dtype=torch.int32)
+    got = _emulated_schedule(q, k, v, bias, g, seeds, rate)
+    want = ta.fused_attention_bwd_plain(q, k, v, bias, g, seeds, rate)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a.float()).all()
+        np.testing.assert_allclose(a.float().numpy(), w.float().numpy(), **TOL["bfloat16"])
+
+
+def test_keep_words_round_trip_the_philox_mask():
+    seeds = torch.tensor([5, -6], dtype=torch.int32)
+    keep = ta.philox_keep_mask(seeds, 2, 77, 0.1)
+    words = _pack_keep_words(keep)
+    assert words.shape == (2, 2, 3, 77) and int(words.max()) < 2 ** 32
+    keys = torch.arange(77)
+    back = ((words[:, :, keys // 32, :].transpose(-1, -2) >> (keys % 32)) & 1).bool()
+    assert torch.equal(back, keep)
+
+
+def test_emulated_bf16_schedule_matches_pallas_interpret_with_a_one_key_row():
+    q, k, v, bias, g = _one_key_inputs(48)
+    got = _emulated_schedule(q, k, v, bias, g, torch.zeros(4, dtype=torch.int32), 0.0)
+
+    @jit
+    def reference(q_, k_, v_, g_):
+        _, vjp = jax.vjp(lambda a, b, c: fa.fused_attention(
+            a, b, c, jnp.asarray(bias.numpy()), jnp.zeros((4,), jnp.int32), 0.0), q_, k_, v_)
+        return vjp(g_)
+
+    want = reference(*(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in (q, k, v, g)))
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(w.astype(jnp.float32)),
+                                   **TOL["bfloat16"])
+    # the one-key example: every query's weight on key 3, so only its dV
+    assert torch.nonzero(got[2][3].float().abs().sum((-2, -1))).flatten().tolist() == [3]

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where the fp32 attention kernels' time goes, on one GPU.
+"""Where the attention kernels' time goes, on one GPU: fp32 and bf16.
 
-    python3 tools/profile_attention_f32.py
+    python3 tools/profile_attention_f32.py [--bf16-only]
 
 Compiles ``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` once more with
-``-Xptxas -v`` and prints each fp32 kernel instance's registers and spills
-at D = 192; then, at the fp32 backward's shapes of ``chip_smoke.py``
-(rate 0), the device time of each kernel a call launches (the dq and the
-dkv kernel, and the forward) beside the kernels of SDPA's backward on the
-same inputs (gradients of one retained forward), from a ``torch.profiler``
+``-Xptxas -v`` and prints the registers and spills of each fp32 kernel
+instance at D = 192 and of every bf16 (tensor-core) instance; then, at the
+fp32 backward's shapes of ``chip_smoke.py`` (rate 0) and at the bf16
+backward's (rate 0 and 0.1), the device time of each kernel a call launches
+(the forward and every backward kernel) beside the kernels of SDPA's
+backward on the same inputs (gradients of one retained forward; at rate 0.1
+SDPA's own dropout, which draws other mask bits), from a ``torch.profiler``
 trace of 10 calls.  Prints one JSON line per shape.  Needs one GPU and nvcc.
 """
 
+import argparse
 import json
 import os
 import re
@@ -30,28 +33,40 @@ from emotts_torch.ops import _build  # noqa: E402
 from emotts_torch.ops import attention as A  # noqa: E402
 
 SEED = 1234
-SHAPES = [(8, 512, 192), (16, 1024, 192), (3, 200, 192)]  # (B, T, D), 2 heads
+# (dtype, B, T, H, D, rate)
+SHAPES = [("float32", 8, 512, 2, 192, 0.0), ("float32", 16, 1024, 2, 192, 0.0),
+          ("float32", 3, 200, 2, 192, 0.0),
+          ("bfloat16", 16, 1024, 2, 192, 0.0), ("bfloat16", 16, 1024, 2, 192, 0.1),
+          ("bfloat16", 16, 1024, 1, 192, 0.0), ("bfloat16", 16, 512, 2, 192, 0.0),
+          ("bfloat16", 16, 777, 2, 192, 0.1), ("bfloat16", 8, 144, 2, 192, 0.1)]
+
+
+def _instance(mangled):
+    """(kernel, D, dropout) of a mangled kernel template instance."""
+    m = re.search(r"\d+(attention_\w+?_kernel)ILi(\d+)ELb([01])E", mangled)
+    return (m.group(1), int(m.group(2)), bool(int(m.group(3)))) if m else None
 
 
 def ptxas_usage(name, out_dir):
-    """(kernel, registers, spill stores, spill loads) of the D = 192 fp32
-    kernels of one source, from ptxas' report."""
+    """Registers and spill bytes of the fp32 kernels at D = 192 and of every
+    bf16 instance of one source, from ptxas' report."""
     cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
            "-o", os.path.join(out_dir, f"{name}.so"), str(_build.CSRC_DIR / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    out = res.stdout + res.stderr
     rows, kernel, spills = [], None, None
-    for line in out.splitlines():
+    for line in (res.stdout + res.stderr).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            kernel = m.group(1) if "f32" in m.group(1) and "ILi192" in m.group(1) else None
+            kernel = _instance(m.group(1))
+            if kernel and "f32" in kernel[0] and kernel[1] != 192:
+                kernel = None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if kernel and m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if kernel and m:
-            rows.append(dict(kernel=kernel, registers=int(m.group(1)),
-                             spill_bytes=spills))
+            rows.append(dict(kernel=kernel[0], d=kernel[1], dropout=kernel[2],
+                             registers=int(m.group(1)), spill_bytes=spills))
             kernel = None
     return rows
 
@@ -70,6 +85,10 @@ def kernel_ms(fn, calls=10):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--bf16-only", action="store_true",
+                    help="only the bf16 instances and shapes")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -78,30 +97,39 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         for name in ("attention", "attention_bwd"):
             for row in ptxas_usage(name, tmp):
-                print(json.dumps(row), flush=True)
+                if not (args.bf16_only and "f32" in row["kernel"]):
+                    print(json.dumps(row), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
-    for b, t, d in SHAPES:
-        q, k, v, dout = (torch.randn(b, t, 2, d, generator=gen).to(dev) for _ in range(4))
+    for dtype, b, t, h, d, rate in SHAPES:
+        if args.bf16_only and dtype == "float32":
+            continue
+        q, k, v, dout = (torch.randn(b, t, h, d, generator=gen).to(dev, getattr(torch, dtype))
+                         for _ in range(4))
         lens = torch.randint(1, t + 1, (b,), generator=gen)
         lens[0], lens[1] = t, 0
         bias = ((torch.arange(t)[None, :] >= lens[:, None]).float() * -1e9).to(dev)
-        _, stats = A.attention_forward(q, k, v, bias, want_stats=True)
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (b,), generator=gen).to(dev, torch.int32)
+        _, stats = A.attention_forward(q, k, v, bias, seeds, rate, want_stats=True)
 
         def ours():
-            A.attention_forward(q, k, v, bias)
-            A.attention_backward(q, k, v, bias, None, stats, dout)
+            A.attention_forward(q, k, v, bias, seeds, rate)
+            A.attention_backward(q, k, v, bias, seeds, stats, dout, rate)
 
         qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias[:, None, None, :])
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias[:, None, None, :].to(q.dtype),
+                                             dropout_p=rate)
 
         def library_backward():
             torch.autograd.grad(out, (qh, kh, vh), dout.transpose(1, 2), retain_graph=True)
 
-        print(json.dumps(dict(shape=[b, t, 2, d], kernels_ms=kernel_ms(ours),
+        print(json.dumps(dict(dtype=dtype, shape=[b, t, h, d], rate=rate,
+                              kernels_ms=kernel_ms(ours),
                               library_backward_kernels_ms=kernel_ms(library_backward))),
               flush=True)
+        del q, k, v, dout, stats, qh, kh, vh, out
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
