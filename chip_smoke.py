@@ -435,7 +435,25 @@ def check_attention_bwd(gen, dev):
     # rows that attend to one or two keys, where delta = rowsum(dP * P)
     # cancels against dP exactly only when taken from the same rounded P
     cases += _bwd_cases(gen, dev, torch.bfloat16, 16, 1024, 10, 192, few_keys=True)
+    cases += _bwd_cases(gen, dev, torch.float32, 8, 512, 3, 192, few_keys=True)
+    # more key tiles of one (b, h) than the card has SMs (64 keys a block in
+    # either fused pass): the dQ adds take the key-tile order, not the
+    # rotated one
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += _bwd_cases(gen, dev, dtype, 2, LONG_T, 3, 192, h=1)
     return cases
+
+
+# past 132 SMs x 64 keys: the fused passes' key-tile order of the dQ adds
+LONG_T = 8512
+
+
+def _dq_order(dev, t):
+    """The order of the fused passes' dQ adds that the host picks at length
+    t: rotated where a (b, h)'s key tiles (64 keys each) fit on the card's
+    SMs together, else the key-tile order."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return "rotated" if -(-t // 64) <= sms else "key-tile"
 
 
 def _few_keys_bias(gen, dev, b, t):
@@ -508,11 +526,10 @@ def _bwd_cases(gen, dev, dtype, b, t, iters, d, h=2, first_head=0, few_keys=Fals
         library_ms, library_device_ms = lib if rate == 0.0 else (None, None)
         yardstick = {} if rate == 0.0 else dict(
             sdpa_dropout_ms=lib[0], sdpa_dropout_device_ms=lib[1])
-        # bf16: the delta pass's two T x T x D products and the fused pass's
-        # five (14 against the algorithm's 10 B*H*T^2*D operations); fp32:
-        # nine products (18), each as three
-        products = 14 if dtype == torch.bfloat16 else 18
-        design = _attention_design(dtype, products * b * h * t * t * d, dev_ms)
+        # the delta pass's two T x T x D products and the fused pass's five
+        # (14 against the algorithm's 10 B*H*T^2*D operations), in either
+        # dtype; fp32 does each as three
+        design = _attention_design(dtype, 14 * b * h * t * t * d, dev_ms)
         cases.append(dict(
             dtype=str(dtype).split(".")[1], shape=[b, t, h, d], rate=rate,
             max_abs_err=max(e[0] for e in errs),
@@ -524,6 +541,7 @@ def _bwd_cases(gen, dev, dtype, b, t, iters, d, h=2, first_head=0, few_keys=Fals
             products_as_designed=design["operations"], split=design["split"],
             operations_as_designed=design["operations_as_designed"],
             tensor_tflops=design["tensor_tflops"], **yardstick,
+            dq_order=_dq_order(dev, t),
             **({"first_head": first_head} if first_head else {}),
             **({"bias": "one or two keys a row"} if few_keys else {}),
         ))
@@ -3127,8 +3145,9 @@ def wall_ms(trainer, batch, steps=2):
 
 def step_reading(trainer, batch):
     """One train step under the profiler: device ms, kernel launches, the
-    NCCL kernels among them, the memory the step allocates above what was
-    allocated before it, and the step's metrics."""
+    NCCL kernels among them, the attention backward's kernels' device ms, the
+    memory the step allocates above what was allocated before it, and the
+    step's metrics."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3142,6 +3161,8 @@ def step_reading(trainer, batch):
     return dict(device_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
                 launches=sum(e.count for e in kernels),
                 nccl_launches=sum(e.count for e in kernels if "nccl" in e.key.lower()),
+                attention_bwd_device_ms=sum(e.self_device_time_total for e in kernels
+                                            if "attention_bwd_" in e.key) / 1e3,
                 step_peak_bytes=torch.cuda.max_memory_allocated() - base, metrics=metrics)
 
 
@@ -3180,10 +3201,12 @@ def dp_nccl_phase(root, rank_exp, dev):
     world size 1 (DDP for the rank and FS2 trainers, the explicit gradient
     all-reduce for the GAN step, the loss and BatchNorm sums all-reduced),
     against the same step with no process group, both built from the same
-    seed: first-step losses at fp32 within DP_LOSS_RTOL, bf16 recorded; in
-    bf16 the wall of two steps read in turns (plain, DP, DP, plain), then
-    one profiled step each: device ms, launches, idle share, the memory each
-    holds after its first step and the step's peak above it."""
+    seed: first-step losses at fp32 within DP_LOSS_RTOL, bf16 recorded, and
+    one profiled fp32 rank step without a process group (device ms, the
+    attention backward's kernels' share); in bf16 the wall of two steps read
+    in turns (plain, DP, DP, plain), then one profiled step each: device ms,
+    launches, idle share, the memory each holds after its first step and the
+    step's peak above it."""
     import torch.distributed as dist
 
     from emotts_torch.parallel.mesh import Mesh
@@ -3214,6 +3237,10 @@ def dp_nccl_phase(root, rank_exp, dev):
                     res["loss_rtol"] = DP_LOSS_RTOL
                     if not np.isfinite(a) or rel > DP_LOSS_RTOL:
                         raise AssertionError(f"(a) {name} fp32: DP loss {a} against {b}")
+                    if name == "rank":  # the fp32 attention backward's share of a step
+                        reading = step_reading(trainers["plain"], batches[name])
+                        reading.pop("metrics")
+                        res["plain_step"] = reading
                 else:
                     walls = {"plain": [], "dp": []}
                     for path in ("plain", "dp", "dp", "plain"):
@@ -4346,7 +4373,8 @@ def main():
     fp32_headline = {  # fp32's largest evaluation and training cases
         "fused_attention": lambda c: c["dtype"] == "float32" and c["shape"] == [8, 1024, 2, 192],
         "fused_attention_bwd": lambda c: (c["dtype"] == "float32" and c["rate"] == 0.0
-                                          and c["shape"] == [8, 512, 2, 192]),
+                                          and c["shape"] == [8, 512, 2, 192]
+                                          and "bias" not in c),
     }
     meta = {
         "fused_attention": ("emotts_torch/csrc/attention.cu", "emotts/ops/attention.py:161"),

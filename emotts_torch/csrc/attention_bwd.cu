@@ -26,8 +26,8 @@
 // 2).  So the sum is taken as the reference takes it, from the same rounded
 // P that forms dS, in a sweep of its own over the key tiles.
 //
-// Two launches a call in either dtype, and no atomic whose order varies, so
-// that a repeated call gives the same bits.  The dropout mask is the one the
+// Two launches a call in either dtype, a delta pass and a fused pass, and no
+// atomic whose order varies, so that a repeated call gives the same bits.  The dropout mask is the one the
 // forward kernel draws from (seed, head, query, key) (attention_common.cuh).
 //
 // What bounds it on this card: 10*B*H*T^2*D operations against
@@ -123,49 +123,105 @@
 //      fused pass  D = 32: 142 / 142;  64: 156 / 154;  96, 128: 190 / 190;
 //                  192: 240 / 238, no spills;  256: 255 / 255 with 60 / 92
 //                  bytes spilled (no model of the repo has D = 256).
-// fp32: on the tensor cores (mma.sync.m16n8k8, TF32 operands, each product
-// as three: 3xTF32, see attention.cu and common.cuh), on a schedule of two
-// reduction directions that recomputes S and dP_d in every sweep: a dq kernel over query tiles (a first sweep over
-// the key tiles sums delta and stores it, a second accumulates dQ) and a
-// dkv kernel over key tiles, nine T x T x D products where the algorithm
-// has five (18 against 10 B*H*T^2*D operations); the dkv kernel draws each
-// 4-key Philox word four times.  What bounds it: operations; the design
-// does 3 x 18 against the bound's 10, so bound / time stays under 1/5.
-// Every tile is fp32 at a row stride of D + 4 floats (conflict-free
-// fragment loads), copied by 16-byte cp.async with rows beyond T
-// zero-filled; the bias and the row statistics come by 4-byte cp.async.  A
-// fresh result (P, dS, or their transposes) is the A operand of the next
-// product straight from its accumulator: the rows of the other operand are
-// read in the C fragment's order (slot t is row 2t, slot t + 4 row 2t + 1),
-// so nothing is shuffled.
-//  - dq kernel (`attention_bwd_dq_f32_kernel`): 64 queries a block (Q and
-//    dO of 128 rows would fill shared memory alone); K and V in
-//    double-buffered tiles of 32 keys (16 at D = 256).  Two groups of 4
-//    warps (16 query rows a warp) take half of every key tile each, so that
-//    a block has 8 warps: per tile and warp S = Q K^T and dP_d = dO V^T
-//    (16 x 16); sweep 1 sums delta = rowsum(dP * P) from P as in the bf16
-//    kernel, sweep 2 forms dS and accumulates dQ += dS K.  Each group holds a
-//    16 x D fp32 dQ a warp over its keys; the two groups' deltas and, at the
-//    end, their dQs are added through shared memory in a fixed order.
-//    Shared memory: Q and dO of 64 rows, two stages of K and V, their bias,
-//    the delta shares: 201,472 bytes at D = 192, 200,448 at D = 256;
-//    registers 204 a thread at D = 192 (215 with dropout).
-//  - dkv kernel (`attention_bwd_dkv_f32_kernel`): 64 keys a block, keys the
-//    rows of every product as in the bf16 kernel, two groups of 4 warps (16
-//    keys each) with their own roles, since dK and dV together would be 192
-//    accumulator registers a thread at D = 192.  Per tile of 32 queries (16
-//    at D = 256), double-buffered with their m, l and delta:
-//      group 0: S^T = K Q^T; P^T = exp(S^T - m) / l; P_d^T; P^T to a scratch
-//               (fp32, register-major, a dropped entry with its sign bit
-//               set); dV += P_d^T dO;
-//      group 1: dP_d^T = V dO^T; after a named barrier, dS^T = P^T (dP^T -
-//               delta) * scale; dK += dS^T Q.
-//    Shared memory: K and V of 64 rows, two stages of Q and dO, the scratch
-//    and the statistics: 209,664 bytes at D = 192, 204,160 at D = 256;
-//    registers 194 a thread at D = 192 (199 with dropout).
-//  Registers and spills (none at D = 192) as ptxas reports them:
-//  tools/profile_attention_f32.py, which also times each kernel of a call
-//  beside the library's backward.
+// fp32: the bf16 instance's schedule, a delta pass and then a fused pass
+// that forms P, dP and dS once per (query tile, key tile) pair: 14 B*H*T^2*D
+// operations, two passes of exponentials, each Philox word drawn once a
+// call.  The products run on the tensor cores through mma.sync.m16n8k8 with
+// TF32 operands, each as three (3xTF32: lo*hi + hi*lo + hi*hi).
+// Not wgmma: TF32 wgmma takes its shared-memory operands K-major only (the
+// transpose bits exist for 16-bit types) and 3xTF32 needs a lo copy of each
+// shared-memory operand.  dV += P_d^T dO, dK += dS^T Q and dQ = dS K would
+// need dO, Q and K transposed and split in shared memory; S^T = K Q^T and
+// dP_d^T = V dO^T read Q and dO K-major as stored, but their lo copies (24
+// KB a 32-row tile each, two stages) do not fit beside what the fused pass
+// holds (222 KB at D = 192).  mma.sync takes both operands from registers,
+// split as they are loaded from fp32 tiles.  The split is integer
+// arithmetic (`split_tf32_alu`: hi rounded to nearest as cvt.rna.tf32 rounds
+// it, lo = v - hi read truncated by the tensor cores): with two cvt a value
+// on the conversion unit, at a quarter of the ALU's rate, the splits and not
+// the products set the time (2.72 ms at (16,1024,2,192) against 2.04,
+// tools/probe_attention_bwd.py; PERF.md, PR 16).  Every tile is fp32
+// at a row stride of D + 4 floats (conflict-free fragment loads along either
+// index).  A fresh result (P^T, dS^T) is the A operand of the next product
+// straight from its accumulator: the rows of the other operand are read in
+// the C fragment's order (slot t is row 2t, slot t + 4 row 2t + 1), so
+// nothing is shuffled.  Both passes form P with `prob`, as the bf16 passes
+// do (base-2 exponent from the row's lse2, one ex2 an entry, `log2e_for` for
+// an example whose keys are all padded).
+//  - delta pass (`attention_bwd_delta_f32_kernel`): one block per 64
+//    queries (Q and dO of 128 rows would fill shared memory alone); K and V
+//    in double-buffered tiles of 32 keys (16 at D = 256), copied by 16-byte
+//    cp.async with rows beyond T zero-filled.  Two groups of 4 warps (16
+//    query rows a warp) take half of every key tile each: per tile and warp
+//    S = Q K^T and dP_d = dO V^T (16 x 16), delta += rowsum(dP * P) in each
+//    thread's fp32 sum in key order, then over the four lanes of a row and
+//    the two groups in a fixed order.  At rate > 0 it draws each 4-key
+//    Philox word once (lanes t and t ^ 1 share a word's group: each draws
+//    it for one of its two rows and hands the other the two words it keeps)
+//    and writes the keep bits in the bf16 pass's format, words of 32 keys,
+//    (B, H, ceil(T / 32), T) uint32, each group storing the bytes of its
+//    keys.  It sets the fused pass's dQ counters to 0.  Shared memory: Q and
+//    dO, two stages of K and V, their bias, the groups' shares of delta:
+//    201,472 bytes at D = 192, 200,320 at D = 256.
+//  - fused pass (`attention_bwd_fused_f32_kernel`): one block per 64 keys,
+//    the rows of S^T, dP^T, dV and dK; 16 warps in four groups of 4 (16 keys
+//    a warp), (role, half): role 0 forms S^T and P^T and accumulates dV,
+//    role 1 forms dP^T and dS^T and accumulates dK; each group forms its
+//    role's tile for half of the step's queries and accumulates half of the
+//    columns of dV or dK (48 accumulator registers a thread at D = 192).
+//    Per tile of 32 queries (16 at D = 256), a step:
+//      role 0: S^T = K Q^T of the half's queries; P^T, and P_d^T from the
+//              keep words; P^T to a scratch (fp32, register-major, a dropped
+//              entry with its sign bit set; two scratches, for even and odd
+//              steps);
+//      role 1: dP_d^T = V dO^T of the half's queries; after named barrier 1,
+//              dS^T = P^T (dP^T - delta) * scale, also stored to a dS^T
+//              tile (keys x queries, stride BQ + 4);
+//      all:    after barrier 2, the other half's P_d^T (from the scratch) or
+//              dS^T (from the tile), then dV += P_d^T dO or dK += dS^T Q
+//              over the group's columns; the tile's dQ partial dS K, a part
+//              of 16 queries by D / 8 columns a warp (D / 16 at D = 256), A
+//              read from the dS^T tile in the key order of a C fragment,
+//              added into dq (below).
+//    Loads: K and V once, by warp 1; the Q and dO rows of each step by bulk
+//    copies, one a row (the tiles keep their padded stride, which no TMA
+//    box writes), their m, l, delta and keep words by cp.async, all counted
+//    on the stage's mbarrier and issued by warp 0 into the other stage once
+//    its dV product is done (every thread is then past the step that read
+//    that stage); rows beyond T are stored as zeros.  No __syncthreads a
+//    step: the stage's mbarrier, barrier 1 (P^T) and barrier 2 (P^T and
+//    dS^T of both halves).  Shared memory: K and V, two stages of Q and dO,
+//    the two P^T scratches, the dS^T tile, statistics and keep words:
+//    227,608 bytes at D = 192, 213,656 at D = 256.
+//  - dQ in a fixed order, into dq itself: fp32 needs no workspace, since a
+//    turn stores or adds its fp32 pairs where they belong.  A counter per
+//    (b, h, query tile) counts the warps whose adds are done, DQW a turn (16
+//    at D = 64, 128, 192, 256; 12 at 96; 8 at 32): a warp's lane 0 waits
+//    (acquire) until the counter reaches DQW * turn, the first turn stores,
+//    later turns add (so each element gets its adds in turn order), and lane
+//    0 counts the warp in with release semantics once the warp's adds are
+//    issued.  The turns follow the bf16 pass's two orders.  Where the key
+//    tiles of one (b, h) fit on the SMs together (`rotate`, set by the host)
+//    block kt starts on query tile R kt (R = 64 / the query tile: 2, or 4 at
+//    D = 256), the first of its own keys' rows, and walks on from there:
+//    tile i = R a + c is taken by block a first and then by blocks a - 1,
+//    a - 2, ... (mod the key tiles), R steps apart each, so a block waits
+//    only for one a turn ahead, which took the tile R steps before.
+//    Otherwise every block takes tile `step` and its turn is its key tile.
+//  - Registers a thread as ptxas reports them (tools/profile_attention_f32.py),
+//    rate 0 / rate > 0:
+//      delta pass  D = 32: 85 / 100;  64: 97 / 130;  96: 102 / 130;
+//                  128: 104 / 130;  192: 106 / 130;  256: 82 / 112;
+//      fused pass  D = 32: 99 / 95;  64: 98 / 101;  96: 105 / 118;
+//                  128: 106 / 109;  192: 127 / 127;  256: 128 / 128, and at
+//                  rate > 0 40 / 40 bytes spilled (stores / loads; no model
+//                  of the repo has D = 256); no other spills.
+//    At (16,1024,2,192) the two passes run their TF32 products (3 x 14
+//    B*H*T^2*D operations) at about 130 TFLOP/s, where the card runs
+//    independent mma.sync TF32 products at 260-313 from 8-32 warps an SM
+//    (the same tool): each warp loads and splits every operand value it
+//    multiplies, and a value of Q, dO or K is loaded and split by every warp
+//    that takes it.
 #include "attention_common.cuh"
 
 #include <math.h>
@@ -180,416 +236,14 @@ struct BwdArgs {
   const void* dout;
   void *dq, *dk, *dv;
   float* delta;
-  uint32_t* keep;   // bf16 only: the delta pass's keep words
+  uint32_t* keep;   // the delta pass's keep words (rate > 0)
   float* dq_acc;    // bf16 only: the fp32 dQ workspace
-  int* counters;    // bf16 only: the dQ adds' turns
+  int* counters;    // the dQ adds' turns
   int B, T, H;
   uint32_t thresh;
   float inv_keep;
   cudaStream_t stream;
 };
-
-// ---------------------------------------------------------------------------
-// fp32 on the tensor cores (mma.sync, 3xTF32)
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct BwdQF32 {
-  static constexpr int BQ = 64;                 // queries per block, 16 a warp
-  static constexpr int THREADS = 256;           // two groups of four warps
-  static constexpr int BK = D > 192 ? 16 : 32;  // keys per tile, half to a group
-  static constexpr int KH = BK / 2;
-  static constexpr int LD = F32Tile<D>::LD;
-  static constexpr int Q_FLOATS = BQ * LD;      // Q or dO
-  static constexpr int KV_FLOATS = BK * LD;     // one K or V tile
-  // Q, dO; stage s: K at 2s, V at 2s + 1 (in KV tiles), after the sweeps
-  // group 1's dQ (register-major); the bias of stage s; each group's share
-  // of delta
-  static constexpr int KV = 2 * Q_FLOATS;
-  static constexpr int BIAS = KV + 4 * KV_FLOATS;
-  static constexpr int PART = BIAS + 2 * BK;
-  static constexpr int SMEM = (PART + 2 * BQ) * 4;
-  static_assert(4 * KV_FLOATS >= 128 * D / 2, "dQ hand-over does not fit");
-};
-
-template <int D, bool DROP>
-__global__ void __launch_bounds__(BwdQF32<D>::THREADS, 1)
-attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ bias,
-                            const int* __restrict__ seeds,
-                            const float* __restrict__ stats,
-                            const float* __restrict__ dout, float* __restrict__ dq,
-                            float* __restrict__ delta_out, int Tlen, int H,
-                            float scale, uint32_t thresh, float inv_keep) {
-  using C = BwdQF32<D>;
-  constexpr int LD = C::LD, BK = C::BK, KH = C::KH, NT = D / 8, NK = KH / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sDO = sQ + C::Q_FLOATS;
-  float* sKV = sQ + C::KV;
-  const float* sBias = sQ + C::BIAS;
-  float* sPart = sQ + C::PART;
-
-  const int tid = threadIdx.x;
-  const int grp = tid >> 7;  // keys grp * KH .. of every tile
-  const int t128 = tid & 127, warp = (tid >> 5) & 3;
-  const int g = (tid & 31) >> 2, t = tid & 3;
-  const int q0 = blockIdx.x * C::BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long row_stride = (long long)H * D;
-  const long long base = (long long)b * Tlen * row_stride + (long long)h * D;
-  const long long stat_row = ((long long)b * H + h) * Tlen;
-  const long long stat_plane = (long long)gridDim.z * H * Tlen;
-  const float* bias_b = bias + (long long)b * Tlen;
-  const int nkt = (Tlen + BK - 1) / BK;
-  const int lrow = 16 * warp + g;  // this thread's rows q0 + lrow, + 8
-  const int row0 = q0 + lrow;
-  const int kofs = grp * KH;
-  const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
-
-  auto load_kv = [&](int j, int s) {
-    float* sK = sKV + 2 * s * C::KV_FLOATS;
-    copy_rows_f32<D, BK, C::THREADS>(sK, k + base, row_stride, j * BK, Tlen, tid);
-    copy_rows_f32<D, BK, C::THREADS>(sK + C::KV_FLOATS, v + base, row_stride,
-                                     j * BK, Tlen, tid);
-    copy_floats(wg::smem_addr(sBias + s * BK), bias_b, j * BK, BK, Tlen, tid);
-    cp_async_commit_group();
-  };
-  copy_rows_f32<D, C::BQ, C::THREADS>(sQ, q + base, row_stride, q0, Tlen, tid);
-  copy_rows_f32<D, C::BQ, C::THREADS>(sDO, dout + base, row_stride, q0, Tlen, tid);
-  load_kv(0, 0);  // one group with Q and dO
-
-  float m[2], inv_l[2], dsum[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    m[r] = row < Tlen ? stats[stat_row + row] : 0.f;
-    // a row beyond T gets 1 / l = 0, hence P = 0
-    inv_l[r] = row < Tlen ? 1.f / stats[stat_plane + stat_row + row] : 0.f;
-  }
-  float acc[NT][4];
-#pragma unroll
-  for (int c = 0; c < NT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-  const float* qa = sQ + lrow * LD + t;
-  const float* ga = sDO + lrow * LD + t;
-
-  // sweep 0 (it < nkt): rowsum(dP * P); sweep 1: dQ
-  for (int it = 0; it < 2 * nkt; ++it) {
-    const int s = it & 1;
-    const bool second = it >= nkt;
-    const int k0 = (second ? it - nkt : it) * BK;
-    cp_async_wait_group<0>();
-    __syncthreads();
-    if (it + 1 < 2 * nkt) load_kv(it + 1 < nkt ? it + 1 : it + 1 - nkt, s ^ 1);
-    if (it == nkt) {
-      // the four lanes of a row add their shares in a fixed order, then the
-      // two groups' shares are added in a fixed order
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
-        if (t == 0) sPart[grp * C::BQ + lrow + 8 * r] = dsum[r];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        delta[r] = sPart[lrow + 8 * r] + sPart[C::BQ + lrow + 8 * r];
-        const int row = row0 + 8 * r;
-        if (grp == 0 && t == 0 && row < Tlen) delta_out[stat_row + row] = delta[r];
-      }
-    }
-    const float* sK = sKV + 2 * s * C::KV_FLOATS + kofs * LD;  // the group's keys
-    const float* sV = sK + C::KV_FLOATS;
-
-    // S = Q K^T, dP_d = dO V^T: 16 x KH a warp each
-    float sc[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
-    mma_abt<D, NK>(sc, qa, sK + g * LD + t);
-    mma_abt<D, NK>(dp, ga, sV + g * LD + t);
-
-    // only the last tile has key slots beyond T
-    const bool full = k0 + BK <= Tlen;
-    uint32_t dh[NK][4], dl[NK][4];  // dS, the split A fragments of dQ += dS K
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        uint4 w = make_uint4(0u, 0u, 0u, 0u);
-        if constexpr (DROP)
-          w = dropout_bits(key, (uint32_t)(row0 + 8 * r),
-                           (uint32_t)(((k0 + kofs) >> 2) + 2 * n + (t >> 1)));
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = kofs + 8 * n + 2 * t + e;  // key k0 + col
-          const int idx = 2 * r + e;
-          const float sv = __fadd_rn(__fmul_rn(sc[n][idx], scale), sBias[s * BK + col]);
-          float p = expf(sv - m[r]) * inv_l[r];
-          if (!full && k0 + col >= Tlen) p = 0.f;
-          float dpv = dp[n][idx];
-          if constexpr (DROP) {
-            const uint32_t word = (t & 1) ? (e ? w.w : w.z) : (e ? w.y : w.x);
-            dpv = word >= thresh ? dpv * inv_keep : 0.f;
-          }
-          if (second)
-            split_tf32<true>((p * (dpv - delta[r])) * scale, dh[n][r + 2 * e],
-                             dl[n][r + 2 * e]);
-          else
-            dsum[r] = fmaf(dpv, p, dsum[r]);
-        }
-      }
-
-    // dQ += dS K over the group's keys, K's rows read in the order of dS's
-    // C fragment
-    if (second) mma_pb<D, NK>(acc, dh, dl, sK + 2 * t * LD + g);
-  }
-
-  // dQ = group 0's sum + group 1's, handed over through the K and V stages
-  __syncthreads();
-  if (grp == 1) {
-#pragma unroll
-    for (int c = 0; c < NT; ++c)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sKV[(4 * c + i) * 128 + t128] = acc[c][i];
-  }
-  __syncthreads();
-  if (grp == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row < Tlen) {
-        float* dst = dq + base + (long long)row * row_stride + 2 * t;
-#pragma unroll
-        for (int c = 0; c < NT; ++c)
-          *reinterpret_cast<float2*>(dst + 8 * c) =
-              make_float2(acc[c][2 * r] + sKV[(4 * c + 2 * r) * 128 + t128],
-                          acc[c][2 * r + 1] + sKV[(4 * c + 2 * r + 1) * 128 + t128]);
-      }
-    }
-  }
-}
-
-template <int D>
-struct BwdKVF32 {
-  static constexpr int BKEY = 64;               // keys per block, 16 a warp
-  static constexpr int THREADS = 256;           // two groups of four warps
-  static constexpr int BQ = D > 192 ? 16 : 32;  // queries per tile
-  static constexpr int LD = F32Tile<D>::LD;
-  static constexpr int NQ = BQ / 8;
-  static constexpr int KV_FLOATS = BKEY * LD;   // K or V
-  static constexpr int Q_FLOATS = BQ * LD;      // one Q or dO tile
-  // K, V; stage s: Q at 2s, dO at 2s + 1 (in Q tiles); P^T of group 0 (fp32,
-  // register-major); m, l, delta of stage s
-  static constexpr int SCRATCH = 2 * KV_FLOATS + 4 * Q_FLOATS;
-  static constexpr int STATS = SCRATCH + 128 * NQ * 4;
-  static constexpr int SMEM = (STATS + 2 * 3 * BQ) * 4;
-};
-
-template <int D, bool DROP>
-__global__ void __launch_bounds__(BwdKVF32<D>::THREADS, 1)
-attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ bias,
-                             const int* __restrict__ seeds,
-                             const float* __restrict__ stats,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ delta, float* __restrict__ dk,
-                             float* __restrict__ dv, int Tlen, int H, float scale,
-                             uint32_t thresh, float inv_keep) {
-  using C = BwdKVF32<D>;
-  constexpr int LD = C::LD, BQ = C::BQ, NT = D / 8, NQ = C::NQ;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + C::KV_FLOATS;
-  float* sQD = sV + C::KV_FLOATS;
-  float* scratch = sK + C::SCRATCH;
-  float* sStats = sK + C::STATS;
-
-  const int tid = threadIdx.x;
-  const int grp = tid >> 7;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
-  const int t128 = tid & 127, warp = (tid >> 5) & 3;
-  const int g = (tid & 31) >> 2, t = tid & 3;
-  const int key0 = blockIdx.x * C::BKEY;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long row_stride = (long long)H * D;
-  const long long base = (long long)b * Tlen * row_stride + (long long)h * D;
-  const long long stat_row = ((long long)b * H + h) * Tlen;
-  const long long stat_plane = (long long)gridDim.z * H * Tlen;
-  const int nqt = (Tlen + BQ - 1) / BQ;
-  const int lrow = 16 * warp + g;  // this thread's key rows lrow, lrow + 8
-  const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
-
-  // Q, dO and their queries' m, l, delta of tile j into stage s
-  auto load_q = [&](int j, int s) {
-    const int t0 = j * BQ;
-    float* sQs = sQD + 2 * s * C::Q_FLOATS;
-    copy_rows_f32<D, BQ, C::THREADS>(sQs, q + base, row_stride, t0, Tlen, tid);
-    copy_rows_f32<D, BQ, C::THREADS>(sQs + C::Q_FLOATS, dout + base, row_stride,
-                                     t0, Tlen, tid);
-    if (tid < 3 * BQ) {
-      const int which = tid / BQ;
-      const float* src = which == 0 ? stats + stat_row
-                         : which == 1 ? stats + stat_plane + stat_row
-                                      : delta + stat_row;
-      copy_floats(wg::smem_addr(sStats + (3 * s + which) * BQ), src, t0, BQ, Tlen,
-                  tid - which * BQ);
-    }
-    cp_async_commit_group();
-  };
-  copy_rows_f32<D, C::BKEY, C::THREADS>(sK, k + base, row_stride, key0, Tlen, tid);
-  copy_rows_f32<D, C::BKEY, C::THREADS>(sV, v + base, row_stride, key0, Tlen, tid);
-  load_q(0, 0);  // one group with K and V
-
-  // a key beyond T gets bias -inf, hence P = 0 in every column
-  float bk[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kr = key0 + lrow + 8 * r;
-    bk[r] = kr < Tlen ? bias[(long long)b * Tlen + kr] : -INFINITY;
-  }
-  float acc[NT][4];  // dV (group 0) or dK (group 1)
-#pragma unroll
-  for (int c = 0; c < NT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-  // A rows: the warp's 16 keys of K (group 0) or V (group 1)
-  const float* ka = (grp == 0 ? sK : sV) + lrow * LD + t;
-
-  for (int j = 0; j < nqt; ++j) {
-    const int s = j & 1, q0 = j * BQ;
-    cp_async_wait_group<0>();
-    __syncthreads();  // tile j has landed; tile j - 1 and its scratch are done with
-    if (j + 1 < nqt) load_q(j + 1, s ^ 1);
-    const float* sQs = sQD + 2 * s * C::Q_FLOATS;
-    const float* sDOs = sQs + C::Q_FLOATS;
-    const float* st = sStats + 3 * s * BQ;  // m, l, delta of the tile's queries
-    // only the last tile has query slots beyond T
-    const bool full = q0 + BQ <= Tlen;
-
-    // S^T = K Q^T (group 0) or dP_d^T = V dO^T (group 1): 16 keys x BQ
-    // queries a warp
-    float sc[NQ][4];
-#pragma unroll
-    for (int n = 0; n < NQ; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-    mma_abt<D, NQ>(sc, ka, (grp == 0 ? sQs : sDOs) + g * LD + t);
-
-    uint32_t fh[NQ][4], fl[NQ][4];  // P_d^T (group 0) or dS^T (group 1), split
-    if (grp == 0) {
-      // P^T and P_d^T; P^T goes to group 1 through the scratch, a dropped
-      // entry with its sign bit set (P >= 0, so the sign carries the mask)
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * n + 2 * t + e;  // query q0 + col
-          const bool in = full || q0 + col < Tlen;
-          const float mq = st[col];
-          const float il = in ? 1.f / st[BQ + col] : 0.f;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const float sv = __fadd_rn(__fmul_rn(sc[n][2 * r + e], scale), bk[r]);
-            const float p = expf(sv - mq) * il;
-            float pd = p, pv = p;
-            if constexpr (DROP) {
-              // key kr is word kr % 4 = g % 4 of group kr / 4
-              const int kr = key0 + lrow + 8 * r;
-              const uint4 w = dropout_bits(key, (uint32_t)(q0 + col), (uint32_t)(kr >> 2));
-              const int word = g & 3;
-              const uint32_t bits = word == 0 ? w.x : word == 1 ? w.y : word == 2 ? w.z : w.w;
-              const bool keep = bits >= thresh;
-              pd = keep ? p * inv_keep : 0.f;
-              pv = keep ? p : -p;
-            }
-            split_tf32<true>(pd, fh[n][r + 2 * e], fl[n][r + 2 * e]);
-            scratch[((n * 2 + e) * 2 + r) * 128 + t128] = pv;
-          }
-        }
-      wg::barrier_arrive(1, 256);  // P^T is in the scratch
-      // dV += P_d^T dO, dO's rows read in the order of P^T's C fragment
-      mma_pb<D, NQ>(acc, fh, fl, sDOs + 2 * t * LD + g);
-    } else {
-      wg::barrier_sync(1, 256);
-      // dS^T = P^T (dP^T - delta) * scale, dP^T taken back through dropout
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * n + 2 * t + e;
-          const float dlt = st[2 * BQ + col];
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float p = scratch[((n * 2 + e) * 2 + r) * 128 + t128];
-            float dpv = sc[n][2 * r + e];
-            if constexpr (DROP) {
-              dpv = signbit(p) ? 0.f : dpv * inv_keep;
-              p = fabsf(p);
-            }
-            split_tf32<true>((p * (dpv - dlt)) * scale, fh[n][r + 2 * e],
-                             fl[n][r + 2 * e]);
-          }
-        }
-      // dK += dS^T Q
-      mma_pb<D, NQ>(acc, fh, fl, sQs + 2 * t * LD + g);
-    }
-  }
-
-  float* dst = grp == 0 ? dv : dk;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kr = key0 + lrow + 8 * r;
-    if (kr < Tlen) {
-      float* row = dst + base + (long long)kr * row_stride + 2 * t;
-#pragma unroll
-      for (int c = 0; c < NT; ++c)
-        *reinterpret_cast<float2*>(row + 8 * c) = make_float2(acc[c][2 * r], acc[c][2 * r + 1]);
-    }
-  }
-}
-
-// static: each library keeps its own record of the attribute it set
-template <int D, bool DROP>
-static int launch_attention_bwd_f32(const BwdArgs& a) {
-  using CQ = BwdQF32<D>;
-  using CK = BwdKVF32<D>;
-  static_assert(CQ::SMEM <= kMaxSmemBytes && CK::SMEM <= kMaxSmemBytes,
-                "backward tiles do not fit");
-  auto dq_kern = attention_bwd_dq_f32_kernel<D, DROP>;
-  auto dkv_kern = attention_bwd_dkv_f32_kernel<D, DROP>;
-  static std::atomic<unsigned long long> dq_smem_set{0}, dkv_smem_set{0};
-  cudaError_t err = set_max_dynamic_smem(dq_kern, CQ::SMEM, dq_smem_set);
-  if (err != cudaSuccess) return (int)err;
-  err = set_max_dynamic_smem(dkv_kern, CK::SMEM, dkv_smem_set);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = 1.0f / sqrtf((float)D);
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* dout = static_cast<const float*>(a.dout);
-  dim3 grid_q((a.T + CQ::BQ - 1) / CQ::BQ, a.H, a.B);
-  dq_kern<<<grid_q, CQ::THREADS, CQ::SMEM, a.stream>>>(
-      q, k, v, a.bias, a.seeds, a.stats, dout, static_cast<float*>(a.dq), a.delta,
-      a.T, a.H, scale, a.thresh, a.inv_keep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // reads the delta the first kernel wrote: same stream, so ordered after it
-  dim3 grid_k((a.T + CK::BKEY - 1) / CK::BKEY, a.H, a.B);
-  dkv_kern<<<grid_k, CK::THREADS, CK::SMEM, a.stream>>>(
-      q, k, v, a.bias, a.seeds, a.stats, dout, a.delta, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.T, a.H, scale, a.thresh, a.inv_keep);
-  return (int)cudaGetLastError();
-}
-
-template <bool DROP>
-int dispatch_attention_bwd_f32(const BwdArgs& a, int D) {
-  switch (D) {
-    case 32: return launch_attention_bwd_f32<32, DROP>(a);
-    case 64: return launch_attention_bwd_f32<64, DROP>(a);
-    case 96: return launch_attention_bwd_f32<96, DROP>(a);
-    case 128: return launch_attention_bwd_f32<128, DROP>(a);
-    case 192: return launch_attention_bwd_f32<192, DROP>(a);
-    case 256: return launch_attention_bwd_f32<256, DROP>(a);
-    default: return kErrUnsupportedShape;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -1309,17 +963,703 @@ int dispatch_attention_bwd_tc(const BwdArgs& a, int D) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 on the tensor cores (mma.sync, 3xTF32)
+// ---------------------------------------------------------------------------
+
+// An mbarrier's expected byte count raised without an arrival (the stage's
+// arrivals come after the copies and stores that fill it).
+__device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until a counter has reached `at_least` (acquire), trapping as
+// `wait_turn` does.
+__device__ __forceinline__ void wait_count(const int* counter, int at_least) {
+  for (uint32_t n = 0; ld_acquire_gpu(counter) < at_least; ++n) {
+    if (n == (1u << 22)) __trap();
+    __nanosleep(64);
+  }
+}
+
+// The 3xTF32 split without the conversion unit: hi = v rounded to TF32 to
+// nearest, ties away from zero, in integer arithmetic (the bits of
+// cvt.rna.tf32.f32), and lo = v - hi (exact) as fp32 bits, which the tensor
+// cores read truncated to TF32 (an error below 2^-21 of v, against the
+// 2^-22 of rounding it).  cvt runs at a quarter of the ALU's rate, and the
+// fp32 backward splits about one operand value a product: with two cvt a
+// value the splits, not the products, set its time (PERF.md, PR 16).
+__device__ __forceinline__ void split_tf32_alu(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// mma_abt (attention_common.cuh) with split_tf32_alu: acc (16 x 8N a warp)
+// += A B^T over depth D in 3xTF32, A a 16-row tile read at `a` (row g,
+// column t of the warp's rows), B N n8 tiles of rows read at `b`.
+template <int D, int N>
+__device__ __forceinline__ void mma_abt_alu(float (&acc)[N][4], const float* a,
+                                            const float* b) {
+  constexpr int LD = F32Tile<D>::LD;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8) {
+    uint32_t ah[4], al[4], bh[N][2], bl[N][2];
+    split_tf32_alu(a[kk], ah[0], al[0]);
+    split_tf32_alu(a[8 * LD + kk], ah[1], al[1]);
+    split_tf32_alu(a[kk + 4], ah[2], al[2]);
+    split_tf32_alu(a[8 * LD + kk + 4], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      split_tf32_alu(b[8 * n * LD + kk], bh[n][0], bl[n][0]);
+      split_tf32_alu(b[8 * n * LD + kk + 4], bh[n][1], bl[n][1]);
+    }
+    mma_3xtf32<N>(acc, 0, ah, al, bh, bl);
+  }
+}
+
+// Rows t0 .. t0 + ROWS - 1 of one (batch, head) of a contiguous fp32 (B, T,
+// H, D) tensor into a tile of stride D + 4, by one warp: a bulk copy of D
+// floats a row on barrier `bar` (the caller has raised its byte count by
+// 4 * D a row below T), zeros stored for rows at or beyond T.
+template <int D, int ROWS>
+__device__ __forceinline__ void bulk_rows_f32(float* dst, const float* src,
+                                              long long row_stride, int t0, int Tlen,
+                                              uint32_t bar, int lane) {
+  constexpr int LD = F32Tile<D>::LD;
+  for (int r = lane; r < ROWS; r += 32) {
+    const int t = t0 + r;
+    if (t < Tlen) {
+      wg::bulk_load(wg::smem_addr(dst + r * LD), src + (long long)t * row_stride, D * 4, bar);
+    } else {
+      float4* z = reinterpret_cast<float4*>(dst + r * LD);
+#pragma unroll 4
+      for (int c = 0; c < D / 4; ++c) z[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+template <int D>
+struct BwdDeltaF32 {
+  static constexpr int BQ = 64;                 // queries per block, 16 a warp
+  static constexpr int THREADS = 256;           // two groups of four warps
+  static constexpr int BK = D > 192 ? 16 : 32;  // keys per tile, half to a group
+  static constexpr int KH = BK / 2;
+  static constexpr int LD = F32Tile<D>::LD;
+  static constexpr int Q_FLOATS = BQ * LD;      // Q or dO
+  static constexpr int KV_FLOATS = BK * LD;     // one K or V tile
+  // Q, dO; stage s: K at 2s, V at 2s + 1 (in KV tiles); the bias of stage s;
+  // each group's share of delta
+  static constexpr int KV = 2 * Q_FLOATS;
+  static constexpr int BIAS = KV + 4 * KV_FLOATS;
+  static constexpr int PART = BIAS + 2 * BK;
+  static constexpr int SMEM = (PART + 2 * BQ) * 4;
+};
+
+template <int D>
+struct BwdFusedF32 {
+  static constexpr int BKEY = 64;               // keys per block, 16 a warp of a group
+  static constexpr int THREADS = 512;           // four groups of four warps
+  static constexpr int BQ = D > 192 ? 16 : 32;  // queries per tile (step)
+  static constexpr int R = BKEY / BQ;           // query tiles per key tile
+  static constexpr int LD = F32Tile<D>::LD;
+  static constexpr int NQ = BQ / 8;             // n8 query tiles of a step
+  static constexpr int NH = NQ / 2;             // ... of a group's half of S^T or dP^T
+  static constexpr int NTH = D / 16;            // n8 column tiles of a group's half of dV or dK
+  static constexpr int LDS = BQ + 4;            // row stride of the dS^T tile
+  static constexpr int KV_FLOATS = BKEY * LD;   // K or V
+  static constexpr int Q_FLOATS = BQ * LD;      // one Q or dO tile
+  static constexpr int PSCR = 128 * NQ * 4;     // one P^T scratch (floats)
+  // the dQ partial of a tile: warp w < DQW takes query rows 16 (w % MT) ..
+  // and NC n8 column tiles from column 8 NC (w / MT)
+  static constexpr int MT = BQ / 16;
+  static constexpr int NCP = (D / 8) % (16 / MT) == 0 ? 16 / MT : (D / 8) % 6 == 0 ? 6 : 4;
+  static constexpr int NC = D / 8 / NCP;
+  static constexpr int DQW = MT * NCP;          // warps that take part in dQ
+  // K, V; stage s: Q at 2s, dO at 2s + 1 (in Q tiles); the P^T scratch of
+  // even and of odd steps (fp32, register-major); dS^T (keys x queries,
+  // stride LDS); m, l, delta of stage s; the keep words of stage s
+  // ([stage][word][query]); the barriers (K and V, then each stage)
+  static constexpr int SCRATCH = 2 * KV_FLOATS + 4 * Q_FLOATS;
+  static constexpr int DST = SCRATCH + 2 * PSCR;
+  static constexpr int STATS = DST + BKEY * LDS;
+  static constexpr int KEEP = STATS + 2 * 3 * BQ;
+  static constexpr int BARS = KEEP + 2 * 2 * BQ;
+  static constexpr int SMEM = BARS * 4 + 3 * 8;
+  static_assert(D % 32 == 0 && (D / 8) % NCP == 0 && DQW <= 16, "dQ partial split");
+};
+
+// acc (16 x 8 NT a warp) += P B over K8 k-steps of 8 rows of B in 3xTF32:
+// mma_pb (attention_common.cuh) for NT n8 column tiles from the column of b0
+// and b1, the first K8 / 2 k-steps' rows read from b0, the others' from b1.
+template <int NT, int K8, int LD>
+__device__ __forceinline__ void mma_pb_cols(float (&acc)[NT][4], const uint32_t (&ph)[K8][4],
+                                            const uint32_t (&pl)[K8][4], const float* b0,
+                                            const float* b1) {
+  constexpr int G = NT % 4 == 0 ? 4 : NT % 3 == 0 ? 3 : 2;  // n8 tiles a group of products
+#pragma unroll
+  for (int j = 0; j < K8; ++j) {
+    const float* b = j < K8 / 2 ? b0 + 8 * j * LD : b1 + 8 * (j - K8 / 2) * LD;
+#pragma unroll
+    for (int c0 = 0; c0 < NT; c0 += G) {
+      uint32_t bh[G][2], bl[G][2];
+#pragma unroll
+      for (int c = 0; c < G; ++c) {
+        split_tf32_alu(b[8 * (c0 + c)], bh[c][0], bl[c][0]);
+        split_tf32_alu(b[LD + 8 * (c0 + c)], bh[c][1], bl[c][1]);
+      }
+      mma_3xtf32<G>(acc, c0, ph[j], pl[j], bh, bl);
+    }
+  }
+}
+
+// The delta pass: one block per 64 queries, a sweep over the key tiles.
+// Writes delta = rowsum(dP * P) and, with dropout, the keep bits of every
+// (query, key) as words of 32 keys; sets the fused pass's dQ counters of its
+// query tiles to 0.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(BwdDeltaF32<D>::THREADS, 1)
+attention_bwd_delta_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ bias,
+                               const int* __restrict__ seeds,
+                               const float* __restrict__ stats,
+                               const float* __restrict__ dout,
+                               float* __restrict__ delta_out,
+                               uint32_t* __restrict__ keep_out, int* __restrict__ counters,
+                               int Tlen, int H, float scale, uint32_t thresh,
+                               float inv_keep) {
+  using C = BwdDeltaF32<D>;
+  constexpr int LD = C::LD, BK = C::BK, KH = C::KH, NK = KH / 8;
+  constexpr int FQ = BwdFusedF32<D>::BQ;  // the fused pass's query tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sDO = sQ + C::Q_FLOATS;
+  float* sKV = sQ + C::KV;
+  const float* sBias = sQ + C::BIAS;
+  float* sPart = sQ + C::PART;
+
+  const int tid = threadIdx.x;
+  const int grp = tid >> 7;  // keys grp * KH .. of every tile
+  const int warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int q0 = blockIdx.x * C::BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long row_stride = (long long)H * D;
+  const long long base = (long long)b * Tlen * row_stride + (long long)h * D;
+  const long long bh = (long long)b * H + h;
+  const long long stat_row = bh * Tlen;
+  const long long stat_plane = (long long)gridDim.z * H * Tlen;
+  const float* bias_b = bias + (long long)b * Tlen;
+  const int nkt = (Tlen + BK - 1) / BK;
+  const int kwords = (Tlen + 31) / 32;
+  const int lrow = 16 * warp + g;  // this thread's rows q0 + lrow, + 8
+  const int row0 = q0 + lrow;
+  const int kofs = grp * KH;
+  const uint32_t key = DROP ? dropout_key(seeds[b], h) : 0u;
+
+  if (tid < C::BQ / FQ) {
+    const int nqt = (Tlen + FQ - 1) / FQ, qt = blockIdx.x * (C::BQ / FQ) + tid;
+    if (qt < nqt) counters[bh * nqt + qt] = 0;
+  }
+
+  auto load_kv = [&](int j, int s) {
+    float* sK = sKV + 2 * s * C::KV_FLOATS;
+    copy_rows_f32<D, BK, C::THREADS>(sK, k + base, row_stride, j * BK, Tlen, tid);
+    copy_rows_f32<D, BK, C::THREADS>(sK + C::KV_FLOATS, v + base, row_stride,
+                                     j * BK, Tlen, tid);
+    copy_floats(wg::smem_addr(sBias + s * BK), bias_b, j * BK, BK, Tlen, tid);
+    cp_async_commit_group();
+  };
+  copy_rows_f32<D, C::BQ, C::THREADS>(sQ, q + base, row_stride, q0, Tlen, tid);
+  copy_rows_f32<D, C::BQ, C::THREADS>(sDO, dout + base, row_stride, q0, Tlen, tid);
+  load_kv(0, 0);  // one group with Q and dO
+
+  const float lg = log2e_for(stats[stat_row]);
+  const float scale2 = scale * lg;
+  float lse2[2], dsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    // a row beyond T gets lse2 = inf, hence P = 0
+    lse2[r] = row < Tlen ? row_lse2(stats[stat_row + row],
+                                    stats[stat_plane + stat_row + row], lg)
+                         : INFINITY;
+  }
+  const float* qa = sQ + lrow * LD + t;
+  const float* ga = sDO + lrow * LD + t;
+
+  for (int it = 0; it < nkt; ++it) {
+    const int s = it & 1;
+    const int k0 = it * BK;
+    cp_async_wait_group<0>();
+    __syncthreads();
+    if (it + 1 < nkt) load_kv(it + 1, s ^ 1);
+    const float* sK = sKV + 2 * s * C::KV_FLOATS + kofs * LD;  // the group's keys
+    const float* sV = sK + C::KV_FLOATS;
+
+    // S = Q K^T, dP_d = dO V^T: 16 x KH a warp each
+    float sc[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
+    mma_abt_alu<D, NK>(sc, qa, sK + g * LD + t);
+    mma_abt_alu<D, NK>(dp, ga, sV + g * LD + t);
+
+    // only the last tile has key slots beyond T
+    const bool full = k0 + BK <= Tlen;
+    uint32_t kbits[2] = {0u, 0u};  // keep bits of rows row0, row0 + 8: bit key - k0 - kofs
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      // keys k0 + kofs + 8n + 2t + e are words 2(t & 1) + e of group
+      // (k0 + kofs) / 4 + 2n + t / 2: lanes t and t ^ 1 share the group, so
+      // the even lane draws it for row0 and the odd one for row0 + 8, and
+      // each hands the other the two words it keeps of its row.  One draw a
+      // word.
+      uint32_t word[2][2] = {{0u, 0u}, {0u, 0u}};  // [row][e]
+      if constexpr (DROP) {
+        const int odd = t & 1;
+        const uint4 w = dropout_bits(key, (uint32_t)(row0 + 8 * odd),
+                                     (uint32_t)(((k0 + kofs) >> 2) + 2 * n + (t >> 1)));
+        const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+        const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+        word[0][0] = odd ? got0 : w.x;
+        word[0][1] = odd ? got1 : w.y;
+        word[1][0] = odd ? w.z : got0;
+        word[1][1] = odd ? w.w : got1;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kofs + 8 * n + 2 * t + e;  // key k0 + col
+          const int idx = 2 * r + e;
+          float p = prob(sc[n][idx], scale2, sBias[s * BK + col] * lg, lse2[r]);
+          if (!full && k0 + col >= Tlen) p = 0.f;
+          float dpv = dp[n][idx];
+          if constexpr (DROP) {
+            const bool keep = word[r][e] >= thresh;
+            dpv = keep ? dpv * inv_keep : 0.f;
+            kbits[r] |= (uint32_t)keep << (8 * n + 2 * t + e);
+          }
+          dsum[r] = fmaf(dpv, p, dsum[r]);
+        }
+    }
+    if constexpr (DROP) {
+      // the four lanes of a row hold disjoint bits; lane r stores row r's
+      // KH bits, bits (k0 + kofs) % 32 .. of word (k0 + kofs) / 32, as a
+      // store of their own bytes (the other group stores the rest)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        kbits[r] |= __shfl_xor_sync(0xffffffffu, kbits[r], 1);
+        kbits[r] |= __shfl_xor_sync(0xffffffffu, kbits[r], 2);
+      }
+      const int row = row0 + 8 * t;
+      if (t < 2 && row < Tlen) {
+        const int kk = k0 + kofs;
+        unsigned char* w = reinterpret_cast<unsigned char*>(
+                               keep_out + (bh * kwords + (kk >> 5)) * Tlen + row) +
+                           ((kk & 31) >> 3);
+        const uint32_t bits = t == 0 ? kbits[0] : kbits[1];
+        if constexpr (KH == 16)
+          *reinterpret_cast<uint16_t*>(w) = (uint16_t)bits;
+        else
+          *w = (unsigned char)bits;
+      }
+    }
+  }
+
+  // the four lanes of a row add their shares in a fixed order, then the two
+  // groups' shares are added in a fixed order
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+    if (t == 0) sPart[grp * C::BQ + lrow + 8 * r] = dsum[r];
+  }
+  __syncthreads();
+  if (grp == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < Tlen)
+        delta_out[stat_row + row] = sPart[lrow + 8 * r] + sPart[C::BQ + lrow + 8 * r];
+    }
+  }
+}
+
+// The fused pass: one block per (key tile, head, example), the key tile the
+// grid's fastest index.  Per query tile: S^T, P^T, dP^T, dS^T once; dV, dK
+// accumulate in registers; the tile's dQ partial dS K is added into dq in a
+// fixed order of key tiles.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(BwdFusedF32<D>::THREADS, 1)
+attention_bwd_fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ bias,
+                               const float* __restrict__ stats,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ delta,
+                               const uint32_t* __restrict__ keep, float* dq,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               int* counters, int Tlen, int H, float scale,
+                               float inv_keep, int rotate) {
+  using C = BwdFusedF32<D>;
+  constexpr int LD = C::LD, BQ = C::BQ, NQ = C::NQ, NH = C::NH, NTH = C::NTH;
+  constexpr int LDS = C::LDS, NC = C::NC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + C::KV_FLOATS;
+  float* sQD = sV + C::KV_FLOATS;
+  float* sDS = sK + C::DST;
+  float* sStats = sK + C::STATS;
+  const uint32_t* sKeep = reinterpret_cast<const uint32_t*>(sK + C::KEEP);
+  const uint32_t sStatsAddr = wg::smem_addr(sStats);
+  const uint32_t sKeepAddr = wg::smem_addr(sK + C::KEEP);
+  const uint32_t bar_kv = wg::smem_addr(sK + C::BARS), bar = bar_kv + 8;  // stage s: bar + 8 s
+
+  const int tid = threadIdx.x;
+  // Group (role, half): role 0 forms S^T and P^T and accumulates dV, role 1
+  // forms dP^T and dS^T and accumulates dK; a group takes half of each
+  // step's queries for S^T or dP^T and half of the columns of dV or dK.
+  const int grp = tid >> 7, role = grp & 1, half = grp >> 1;
+  const int t128 = tid & 127, wid = tid >> 5, warp = wid & 3;
+  const int lane = tid & 31, g = lane >> 2, t = tid & 3;
+  // Blocks are launched in the order of their linear index, so the blocks of
+  // one (b, h) start in key-tile order (the dQ turns below rely on it).
+  const int kt = blockIdx.x, nkt = gridDim.x;
+  const int key0 = kt * C::BKEY;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long row_stride = (long long)H * D;
+  const long long base = (long long)b * Tlen * row_stride + (long long)h * D;
+  const long long bh = (long long)b * H + h;
+  const long long stat_row = bh * Tlen;
+  const long long stat_plane = (long long)gridDim.z * H * Tlen;
+  const int nqt = (Tlen + BQ - 1) / BQ;
+  const int kwords = (Tlen + 31) / 32;
+  const int lrow = 16 * warp + g;  // this thread's key rows lrow, lrow + 8
+  int* counter = counters + bh * nqt;
+  // The query tile of step `step` and this block's turn in adding its dQ
+  // partial to it.  With `rotate` (the host sets it when the blocks of one
+  // (b, h) fit on the card together) block kt starts on query tile R kt, the
+  // first of its own keys' rows, and walks on from there: tile i = R a + c is
+  // visited first by block a, and then by blocks a - 1, a - 2, ... (mod nkt),
+  // each R steps after the one before it, so the turn of block kt is
+  // (a - kt) mod nkt and it waits only for a block one turn ahead.  Without
+  // it every block takes tile `step` and its turn is kt (key-tile order): a
+  // block then waits only for blocks launched before it.
+  auto tile_of = [&](int step) { return rotate ? (C::R * kt + step) % nqt : step; };
+  auto turn_of = [&](int step) {
+    return rotate ? (tile_of(step) / C::R - kt + nkt) % nkt : kt;
+  };
+
+  // Q, dO of the tile of step `step` into stage s by bulk copies, their
+  // queries' m, l, delta and keep words by cp.async, by warp 0: the stage's
+  // barrier counts the copies' bytes and two arrivals a lane, one after its
+  // stores (the zero rows), one when its cp.async copies land.
+  auto load_stage = [&](int step, int s) {
+    const int t0 = tile_of(step) * BQ;
+    const int rows = min(BQ, Tlen - t0);
+    const uint32_t full_bar = bar + 8 * s;
+    if (lane == 0) mbar_expect_tx_only(full_bar, 2 * rows * D * 4);
+    __syncwarp();
+    wg::fence_proxy_async();  // the zero rows stored earlier, before the copies
+    float* sQs = sQD + 2 * s * C::Q_FLOATS;
+    bulk_rows_f32<D, BQ>(sQs, q + base, row_stride, t0, Tlen, full_bar, lane);
+    bulk_rows_f32<D, BQ>(sQs + C::Q_FLOATS, dout + base, row_stride, t0, Tlen, full_bar, lane);
+    constexpr int N = (DROP ? 5 : 3) * BQ;  // m, l, delta; keep words 0, 1
+#pragma unroll
+    for (int x = lane; x < N; x += 32) {
+      const int which = x / BQ, qq = x - which * BQ;
+      const int tq = t0 + qq;
+      if (which < 3) {
+        const float* src = which == 0 ? stats + stat_row
+                           : which == 1 ? stats + stat_plane + stat_row
+                                        : delta + stat_row;
+        wg::cp_async4(sStatsAddr + ((3 * s + which) * BQ + qq) * 4,
+                      src + (tq < Tlen ? tq : 0), tq < Tlen);
+      } else {
+        const int w = which - 3, kw = (key0 >> 5) + w;
+        const bool ok = tq < Tlen && kw < kwords;
+        wg::cp_async4(sKeepAddr + ((2 * s + w) * BQ + qq) * 4,
+                      keep + (bh * kwords + (ok ? kw : 0)) * Tlen + (ok ? tq : 0), ok);
+      }
+    }
+    wg::cp_async_mbar_arrive(full_bar);
+    wg::mbar_arrive(full_bar);
+  };
+
+  if (tid == 0) {
+    wg::mbar_init(bar_kv, 32);
+    wg::mbar_init(bar, 64);
+    wg::mbar_init(bar + 8, 64);
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  if (wid == 1) {  // K and V of the block's keys
+    if (lane == 0) mbar_expect_tx_only(bar_kv, 2 * min(C::BKEY, Tlen - key0) * D * 4);
+    __syncwarp();
+    bulk_rows_f32<D, C::BKEY>(sK, k + base, row_stride, key0, Tlen, bar_kv, lane);
+    bulk_rows_f32<D, C::BKEY>(sV, v + base, row_stride, key0, Tlen, bar_kv, lane);
+    wg::mbar_arrive(bar_kv);
+  } else if (wid == 0) {
+    load_stage(0, 0);
+  }
+
+  // the bias times log2(e) (or 0, `log2e_for`), as `prob` takes it; a key
+  // beyond T gets -inf, hence P = 0 in every column
+  const float lg = log2e_for(stats[stat_row]);
+  const float scale2 = scale * lg;
+  float bk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = key0 + lrow + 8 * r;
+    bk[r] = kr < Tlen ? bias[(long long)b * Tlen + kr] * lg : -INFINITY;
+  }
+  float acc[NTH][4];  // the group's half of the columns of dV (role 0) or dK (role 1)
+#pragma unroll
+  for (int c = 0; c < NTH; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  // A rows: the warp's 16 keys of K (role 0) or V (role 1)
+  const float* ka = (role == 0 ? sK : sV) + lrow * LD + t;
+  // the dQ partial's A (dS, read from the dS^T tile) and B (K) of this warp
+  const int mt = wid % C::MT, col0 = 8 * NC * (wid / C::MT);
+  const float* dsa = sDS + 2 * t * LDS + 16 * mt + g;
+  const float* kb = sK + 2 * t * LD + col0 + g;
+  wg::mbar_wait(bar_kv, 0);
+
+  for (int step = 0; step < nqt; ++step) {
+    const int s = step & 1;
+    const int i = tile_of(step), q0 = i * BQ;
+    wg::mbar_wait(bar + 8 * s, (step >> 1) & 1);
+    const float* sQs = sQD + 2 * s * C::Q_FLOATS;
+    const float* sDOs = sQs + C::Q_FLOATS;
+    const float* st = sStats + 3 * s * BQ;  // m, l, delta of the tile's queries
+    // P^T of this step: two scratches, so that a group writing the next
+    // step's never meets a group still reading this one's
+    float* pscr = sK + C::SCRATCH + s * C::PSCR;
+    // only the last tile has query slots beyond T
+    const bool full = q0 + BQ <= Tlen;
+
+    // S^T = K Q^T (role 0) or dP_d^T = V dO^T (role 1): 16 keys x the
+    // half's BQ / 2 queries a warp
+    float sc[NH][4];
+#pragma unroll
+    for (int n = 0; n < NH; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    mma_abt_alu<D, NH>(sc, ka, (role == 0 ? sQs : sDOs) + (8 * NH * half + g) * LD + t);
+
+    // P_d^T (role 0) or dS^T (role 1) of all BQ queries, split: the A operand
+    // of dV's or dK's product, the half's own k8 steps first (0 .. NH - 1),
+    // then the other half's
+    uint32_t fh[NQ][4], fl[NQ][4];
+    if (role == 0) {
+      // P^T and P_d^T of the half's queries; P^T goes to the scratch, a
+      // dropped entry with its sign bit set (P >= 0, so the sign carries the
+      // mask)
+      const uint32_t* kp = sKeep + (2 * s + (warp >> 1)) * BQ;  // this warp's key word
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int nn = NH * half + n;
+          const int col = 8 * nn + 2 * t + e;  // query q0 + col
+          const bool in = full || q0 + col < Tlen;
+          const float lse2 = in ? row_lse2(st[col], st[BQ + col], lg) : INFINITY;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float p = prob(sc[n][2 * r + e], scale2, bk[r], lse2);
+            float pd = p, pv = p;
+            if constexpr (DROP) {
+              const bool kept = (kp[col] >> ((lrow + 8 * r) & 31)) & 1u;
+              pd = kept ? p * inv_keep : 0.f;
+              pv = kept ? p : -p;
+            }
+            split_tf32_alu(pd, fh[n][r + 2 * e], fl[n][r + 2 * e]);
+            pscr[((nn * 2 + e) * 2 + r) * 128 + t128] = pv;
+          }
+        }
+      wg::barrier_arrive(1, 512);  // P^T is in the scratch
+    } else {
+      wg::barrier_sync(1, 512);
+      // dS^T = P^T (dP^T - delta) * scale of the half's queries, dP^T taken
+      // back through dropout; stored to the dS^T tile for the other half's
+      // dK and for dQ's product
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int nn = NH * half + n;
+          const int col = 8 * nn + 2 * t + e;
+          const float dlt = st[2 * BQ + col];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float p = pscr[((nn * 2 + e) * 2 + r) * 128 + t128];
+            float dpv = sc[n][2 * r + e];
+            if constexpr (DROP) {
+              dpv = signbit(p) ? 0.f : dpv * inv_keep;
+              p = fabsf(p);
+            }
+            const float ds = (p * (dpv - dlt)) * scale;
+            split_tf32_alu(ds, fh[n][r + 2 * e], fl[n][r + 2 * e]);
+            sDS[(lrow + 8 * r) * LDS + col] = ds;
+          }
+        }
+    }
+    wg::barrier_sync(2, 512);  // P^T and the dS^T tile are whole
+
+    // the other half's queries of P_d^T (from the scratch) or dS^T (from the
+    // tile), for the same keys
+#pragma unroll
+    for (int n = 0; n < NH; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int nn = NH * (1 - half) + n;
+        const int col = 8 * nn + 2 * t + e;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x;
+          if (role == 0) {
+            x = pscr[((nn * 2 + e) * 2 + r) * 128 + t128];
+            if constexpr (DROP) x = signbit(x) ? 0.f : x * inv_keep;
+          } else {
+            x = sDS[(lrow + 8 * r) * LDS + col];
+          }
+          split_tf32_alu(x, fh[NH + n][r + 2 * e], fl[NH + n][r + 2 * e]);
+        }
+      }
+    // dV += P_d^T dO (role 0) or dK += dS^T Q (role 1) over the half's
+    // columns, the B rows read in the order of the A operand's C fragment
+    {
+      const float* bq = (role == 0 ? sDOs : sQs) + 2 * t * LD + half * (D / 2) + g;
+      mma_pb_cols<NTH, NQ, LD>(acc, fh, fl, bq + 8 * NH * half * LD,
+                               bq + 8 * NH * (1 - half) * LD);
+    }
+    // every thread is past step - 1, which read the other stage
+    if (wid == 0 && step + 1 < nqt) load_stage(step + 1, s ^ 1);
+
+    if (wid < C::DQW) {
+      // the tile's dQ partial dS K (BQ x D over the block's 64 keys), a 16 x
+      // 8 NC part a warp; the key slots of A in the C fragment's order (slot
+      // t is key 2t, slot t + 4 key 2t + 1 of a k8 step), K's rows in the same
+      float dqp[NC][4];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) dqp[c][0] = dqp[c][1] = dqp[c][2] = dqp[c][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < C::BKEY / 8; ++j) {
+        const float* aj = dsa + 8 * j * LDS;
+        uint32_t ah[4], al[4], bh[NC][2], bl[NC][2];
+        split_tf32_alu(aj[0], ah[0], al[0]);
+        split_tf32_alu(aj[8], ah[1], al[1]);
+        split_tf32_alu(aj[LDS], ah[2], al[2]);
+        split_tf32_alu(aj[LDS + 8], ah[3], al[3]);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          split_tf32_alu(kb[8 * j * LD + 8 * c], bh[c][0], bl[c][0]);
+          split_tf32_alu(kb[(8 * j + 1) * LD + 8 * c], bh[c][1], bl[c][1]);
+        }
+        mma_3xtf32<NC>(dqp, 0, ah, al, bh, bl);
+      }
+      // Added into dq in the tile's fixed order of key tiles.  The counter
+      // of (b, h, tile i) counts the warps whose adds are done, DQW a turn:
+      // a warp waits for DQW * turn (acquire), the first turn stores, later
+      // turns add (each element gets its adds in turn order), and lane 0
+      // counts the warp in with release semantics after the warp's adds.
+      const int turn = turn_of(step);
+      if (lane == 0 && turn > 0) wait_count(counter + i, C::DQW * turn);
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int tq = q0 + 16 * mt + g + 8 * r;
+        if (tq < Tlen) {
+          float* row = dq + base + (long long)tq * row_stride + col0 + 2 * t;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const float2 val = make_float2(dqp[c][2 * r], dqp[c][2 * r + 1]);
+            if (turn == 0)
+              *reinterpret_cast<float2*>(row + 8 * c) = val;
+            else
+              atomicAdd(reinterpret_cast<float2*>(row + 8 * c), val);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0 && turn + 1 < nkt) red_release_gpu_add(counter + i, 1);
+    }
+  }
+
+  float* dst = (role == 0 ? dv : dk) + half * (D / 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = key0 + lrow + 8 * r;
+    if (kr < Tlen) {
+      float* row = dst + base + (long long)kr * row_stride + 2 * t;
+#pragma unroll
+      for (int c = 0; c < NTH; ++c)
+        *reinterpret_cast<float2*>(row + 8 * c) = make_float2(acc[c][2 * r], acc[c][2 * r + 1]);
+    }
+  }
+}
+
+// static: each library keeps its own record of the attribute it set
+template <int D, bool DROP>
+static int launch_attention_bwd_f32(const BwdArgs& a) {
+  using CD = BwdDeltaF32<D>;
+  using CF = BwdFusedF32<D>;
+  static_assert(CD::SMEM <= kMaxSmemBytes && CF::SMEM <= kMaxSmemBytes,
+                "backward tiles do not fit");
+  auto delta_kern = attention_bwd_delta_f32_kernel<D, DROP>;
+  auto fused_kern = attention_bwd_fused_f32_kernel<D, DROP>;
+  static std::atomic<unsigned long long> delta_smem_set{0}, fused_smem_set{0};
+  cudaError_t err = set_max_dynamic_smem(delta_kern, CD::SMEM, delta_smem_set);
+  if (err != cudaSuccess) return (int)err;
+  err = set_max_dynamic_smem(fused_kern, CF::SMEM, fused_smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const float scale = 1.0f / sqrtf((float)D);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  dim3 grid_d((a.T + CD::BQ - 1) / CD::BQ, a.H, a.B);
+  delta_kern<<<grid_d, CD::THREADS, CD::SMEM, a.stream>>>(
+      q, k, v, a.bias, a.seeds, a.stats, dout, a.delta, a.keep, a.counters, a.T, a.H,
+      scale, a.thresh, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // reads delta, the keep words and the zeroed counters the delta pass
+  // wrote: same stream, so ordered after it.  The key tile is the fastest
+  // grid index (the dQ adds rely on it).
+  dim3 grid_f((a.T + CF::BKEY - 1) / CF::BKEY, a.H, a.B);
+  fused_kern<<<grid_f, CF::THREADS, CF::SMEM, a.stream>>>(
+      q, k, v, a.bias, a.stats, dout, a.delta, a.keep, static_cast<float*>(a.dq),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.counters, a.T, a.H, scale,
+      a.inv_keep, grid_f.x <= (unsigned)sm_count() ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+template <bool DROP>
+int dispatch_attention_bwd_f32(const BwdArgs& a, int D) {
+  switch (D) {
+    case 32: return launch_attention_bwd_f32<32, DROP>(a);
+    case 64: return launch_attention_bwd_f32<64, DROP>(a);
+    case 96: return launch_attention_bwd_f32<96, DROP>(a);
+    case 128: return launch_attention_bwd_f32<128, DROP>(a);
+    case 192: return launch_attention_bwd_f32<192, DROP>(a);
+    case 256: return launch_attention_bwd_f32<256, DROP>(a);
+    default: return kErrUnsupportedShape;
+  }
+}
+
 }  // namespace emotts
 
 // q, k, v, dout, dq, dk, dv: contiguous, 16-byte aligned (B, T, H, D) in
 // fp32 (is_bf16 = 0) or bf16 (1); bias (B, T) fp32; stats (2, B, H, T) fp32
 // as the forward kernel wrote them; delta (B, H, T) fp32 scratch; seeds (B,)
-// int32 (may be null when drop == 0).  bf16 only: keep (B, H, ceil(T / 32),
-// T) uint32 scratch (may be null when drop == 0), dq_acc (B, H,
-// ceil(T / 64), 64 * ceil(D / 64) * 64) fp32 scratch, 16-byte aligned,
-// counters (B, H, ceil(T / 64)) int32 scratch; null for fp32.  D in
-// {32, 64, 96, 128, 192, 256}.  Two launches on `stream`, no
-// synchronisation; returns 0 or an error code.
+// int32 (may be null when drop == 0); keep (B, H, ceil(T / 32), T) uint32
+// scratch (may be null when drop == 0); counters (B, H, ceil(T / BQ)) int32
+// scratch, BQ the fused pass's query tile: 64 for bf16, 32 for fp32 (16 at
+// D = 256).  bf16 only: dq_acc (B, H, ceil(T / 64), 64 * ceil(D / 64) * 64)
+// fp32 scratch, 16-byte aligned (may be null for fp32, whose dQ partials
+// are added into dq itself).  D in {32, 64, 96, 128, 192, 256}.  Two
+// launches on `stream`, no synchronisation; returns 0 or an error code.
 extern "C" int emotts_attention_bwd(
     const void* q, const void* k, const void* v, const float* bias,
     const int* seeds, const float* stats, const void* dout,
@@ -1329,7 +1669,7 @@ extern "C" int emotts_attention_bwd(
   if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535)
     return emotts::kErrUnsupportedShape;
   if (drop && seeds == nullptr) return emotts::kErrUnsupportedShape;
-  if (is_bf16 && (dq_acc == nullptr || counters == nullptr || (drop && keep == nullptr)))
+  if (counters == nullptr || (drop && keep == nullptr) || (is_bf16 && dq_acc == nullptr))
     return emotts::kErrUnsupportedShape;
   const emotts::BwdArgs a{q, k, v, bias, seeds, stats, dout, dq, dk, dv,
                           delta, static_cast<uint32_t*>(keep), dq_acc, counters,

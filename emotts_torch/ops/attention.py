@@ -17,12 +17,13 @@ and backward, with every product accumulated in fp32:
 
 The forward kernel is ``csrc/attention.cu``: one block per (batch, head,
 query tile), an online softmax over key tiles.  The backward is
-``csrc/attention_bwd.cu``, two launches a call in either dtype.  bf16: a
-delta pass over query tiles, then a fused pass over key tiles that forms P
-and dS once per tile pair, keeps dK and dV in registers and adds each query
-tile's dQ partial into an fp32 workspace in a fixed key-tile order.  fp32:
-blocks over query tiles for dQ, blocks over key tiles for dK and dV.  Neither
-uses an atomic whose order varies, so a repeated call gives the same bits.
+``csrc/attention_bwd.cu``, two launches a call in either dtype, on one
+schedule: a delta pass over query tiles, then a fused pass over key tiles
+that forms P and dS once per tile pair, keeps dK and dV in registers and
+adds each query tile's dQ partial in a fixed key-tile order (bf16: into an
+fp32 workspace, the last add rounding into dq; fp32: into dq itself).
+Neither uses an atomic whose order varies, so a repeated call gives the
+same bits.
 Nothing of size T×T reaches device memory either way, and the module's own
 (B, T, H, D) layout is read with strides.  When a gradient is wanted the
 forward also writes each row's softmax maximum and sum (2·B·H·T floats) and
@@ -65,9 +66,16 @@ fp32_launch_count = 0
 fp32_bwd_launch_count = 0
 
 _SUPPORTED_D = (32, 64, 96, 128, 192, 256)
-# CUDA launches of one backward call, the same in both dtypes: bf16 the delta
-# pass and the fused pass, fp32 the dq kernel and the dkv kernel
+# CUDA launches of one backward call, the same in both dtypes: the delta pass
+# and the fused pass
 BWD_LAUNCHES_PER_CALL = 2
+
+
+def _bwd_query_tile(d: int, bf16: bool) -> int:
+    """Queries a step of the fused backward pass (its dQ counters' tiles):
+    ``BwdFusedTc::BQ`` and ``BwdFusedF32::BQ`` in ``csrc/attention_bwd.cu``."""
+    return 64 if bf16 else (16 if d > 192 else 32)
+
 
 _HEAD_MIX = -1640531527  # golden-ratio constant decorrelating the heads
 _M32 = 0xFFFFFFFF
@@ -287,11 +295,13 @@ def attention_forward(q, k, v, bias, seeds=None, rate: float = 0.0,
 def attention_backward(q, k, v, bias, seeds, stats, dout, rate: float = 0.0):
     """The backward wrapper: (dq, dk, dv) from the forward's inputs, its row
     statistics, and the output's gradient.  CUDA tensors go through the two
-    kernels or raise; CPU tensors take the plain version.  Besides delta, the
-    bf16 kernels take scratch of their own: the keep bits (B, H, ⌈T/32⌉, T)
-    words at rate > 0, the fp32 dQ workspace (64 × D rounded up to whole
-    64-column blocks, per (B, H, 64-query tile)) and the dQ adds' counters
-    (B, H, ⌈T/64⌉), which the delta pass sets to 0."""
+    kernels or raise; CPU tensors take the plain version.  Scratch of both
+    dtypes: delta (B, H, T), the keep bits (B, H, ⌈T/32⌉, T) words at rate >
+    0 and the dQ adds' counters (B, H, ⌈T/BQ⌉), BQ the fused pass's query
+    tile (64 for bf16; 32 for fp32, 16 at D = 256), which the delta pass sets
+    to 0.  bf16 also takes the fp32 dQ workspace (64 × D rounded up to whole
+    64-column blocks, per (B, H, 64-query tile)); fp32 adds its dQ partials
+    into dq itself."""
     _check_inputs(q, k, v, bias, seeds, rate, extra=[("dout", dout)])
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, bias, dout, seeds, rate)
@@ -306,14 +316,15 @@ def attention_backward(q, k, v, bias, seeds, stats, dout, rate: float = 0.0):
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     drop = rate > 0.0
     bf16 = q.dtype == torch.bfloat16
-    keep = dq_acc = counters = None
+    keep = dq_acc = None
+    if drop:  # uint32 words, held as int32
+        keep = torch.empty((b, h, (t + 31) // 32, t), dtype=torch.int32, device=q.device)
     if bf16:
-        if drop:  # uint32 words, held as int32
-            keep = torch.empty((b, h, (t + 31) // 32, t), dtype=torch.int32, device=q.device)
         # per 64-query tile, 64 rows of D rounded up to whole 64-column blocks
         dq_acc = torch.empty((b, h, (t + 63) // 64, 64 * ((d + 63) // 64 * 64)),
                              dtype=torch.float32, device=q.device)
-        counters = torch.empty((b, h, (t + 63) // 64), dtype=torch.int32, device=q.device)
+    counters = torch.empty((b, h, -(-t // _bwd_query_tile(d, bf16))), dtype=torch.int32,
+                           device=q.device)
     fn = _entry("emotts_attention_bwd", "attention_bwd", _BWD_ARGTYPES)
     global bwd_launch_count, fp32_bwd_launch_count
     with _launch_device(q):
@@ -322,8 +333,7 @@ def attention_backward(q, k, v, bias, seeds, stats, dout, rate: float = 0.0):
                   stats.data_ptr(), dout.data_ptr(), dq.data_ptr(),
                   dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
                   None if keep is None else keep.data_ptr(),
-                  None if dq_acc is None else dq_acc.data_ptr(),
-                  None if counters is None else counters.data_ptr(),
+                  None if dq_acc is None else dq_acc.data_ptr(), counters.data_ptr(),
                   b, t, h, d, int(bf16), int(drop),
                   dropout_threshold(rate), 1.0 / (1.0 - rate),
                   torch.cuda.current_stream().cuda_stream)

@@ -20,7 +20,8 @@ import torch
 
 import emotts.ops.attention as fa
 from emotts_torch.ops import attention as ta
-from tests.torch_port_util import jit, single_torch_thread  # noqa: F401
+from tests.torch_port_util import (KERNEL_TOL, einsum_3xtf32, jit,  # noqa: F401
+                                   single_torch_thread, tf32_round)
 
 
 @pytest.fixture(autouse=True)
@@ -88,11 +89,13 @@ def test_function_backward_is_the_plain_backward_on_cpu_and_counts_no_launch():
     q, k, v, bias, g = (torch.from_numpy(a) for a in _inputs())
     seeds = torch.tensor([1, 2, 3], dtype=torch.int32)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
-    before = ta.launch_count, ta.bwd_launch_count
+    counts = lambda: (ta.launch_count, ta.bwd_launch_count,  # noqa: E731
+                      ta.fp32_launch_count, ta.fp32_bwd_launch_count)
+    before = counts()
     out = ta.fused_attention(q, k, v, bias, seeds, 0.1)
     # autograd hands a strided gradient over: the Function makes it contiguous
     got = torch.autograd.grad(out.transpose(1, 2), (q, k, v), g.transpose(1, 2))
-    assert (ta.launch_count, ta.bwd_launch_count) == before
+    assert counts() == before
     want = ta.fused_attention_bwd_plain(q.detach(), k.detach(), v.detach(), bias,
                                         g, seeds, 0.1)
     for a, w in zip(got, want):
@@ -172,7 +175,7 @@ def test_fully_padded_row_has_a_finite_gradient():
 
 
 # --------------------------------------------------------------------------
-# The bf16 kernels' schedule (csrc/attention_bwd.cu), emulated at toy size
+# The kernels' schedule (csrc/attention_bwd.cu), emulated at toy size
 # --------------------------------------------------------------------------
 
 def _bf16(x):
@@ -190,14 +193,20 @@ def _pack_keep_words(keep):
     return bits.sum(-1).transpose(2, 3)  # disjoint bits: the sum is the OR
 
 
-def _emulated_schedule(q, k, v, bias, dout, seeds, rate, bq=16, bk=32):
-    """The bf16 backward as the kernels schedule it, in fp32 with the
-    kernels' bf16 roundings: a delta pass over the key tiles (rowsum(dP * P)
-    from the rounded P, and at rate > 0 the keep bits packed into words),
-    then one block per key tile that forms S^T, P^T, dP^T and dS^T once per
-    query tile, accumulates dV and dK, and hands each query tile's dQ
-    partial on in key-tile order.  P comes from the forward's row
-    statistics (maximum m and sum l), as the kernels form it."""
+def _emulated_schedule(q, k, v, bias, dout, seeds, rate, bq=16, bk=32,
+                       dtype=torch.bfloat16, mm=torch.matmul, rotate=False):
+    """The backward as the kernels schedule it, in fp32, with the bf16
+    kernels' roundings for ``dtype`` bf16 and none for fp32: a delta pass
+    over the key tiles (rowsum(dP * P) from the (rounded) P, and at rate > 0
+    the keep bits packed into words), then one block per key tile that forms
+    S^T, P^T, dP^T and dS^T once per query tile, accumulates dV and dK, and
+    hands each query tile's dQ partial on in a fixed order of key tiles: the
+    key-tile order, or with ``rotate`` the fp32 pass's rotated order (query
+    tile i first from key tile i // (bk // bq), then the key tiles before
+    it, wrapping round).  P comes from the forward's row statistics (maximum
+    m and sum l), as the kernels form it.  ``mm`` does every product (the
+    fp32 kernels' 3xTF32 arithmetic: ``_matmul_3xtf32``)."""
+    rnd = _bf16 if dtype == torch.bfloat16 else (lambda x: x)
     b, t, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     inv_keep = 1.0 / (1.0 - rate)
@@ -212,9 +221,9 @@ def _emulated_schedule(q, k, v, bias, dout, seeds, rate, bq=16, bk=32):
     delta = torch.zeros(b, h, t)
     for j in range(nkt):
         ks = slice(j * bk, min((j + 1) * bk, t))
-        p = _bf16(torch.exp(qf @ kf[:, :, ks].transpose(-1, -2) * scale
-                            + bias[:, None, None, ks] - m[..., None]) * inv_l[..., None])
-        dp = gf @ vf[:, :, ks].transpose(-1, -2)
+        p = rnd(torch.exp(mm(qf, kf[:, :, ks].transpose(-1, -2)) * scale
+                          + bias[:, None, None, ks] - m[..., None]) * inv_l[..., None])
+        dp = mm(gf, vf[:, :, ks].transpose(-1, -2))
         if rate:
             keys = torch.arange(ks.start, ks.stop)
             kept = ((words[:, :, keys // 32, :].transpose(-1, -2) >> (keys % 32)) & 1).bool()
@@ -229,34 +238,44 @@ def _emulated_schedule(q, k, v, bias, dout, seeds, rate, bq=16, bk=32):
         keys = torch.arange(ks.start, ks.stop)
         for i in range(nqt):
             qs = slice(i * bq, min((i + 1) * bq, t))
-            st = kf[:, :, ks] @ qf[:, :, qs].transpose(-1, -2) * scale  # keys x queries
+            st = mm(kf[:, :, ks], qf[:, :, qs].transpose(-1, -2)) * scale  # keys x queries
             st = st + bias[:, None, ks, None]
-            pt = _bf16(torch.exp(st - m[:, :, None, qs]) * inv_l[:, :, None, qs])
-            dpt = vf[:, :, ks] @ gf[:, :, qs].transpose(-1, -2)
+            pt = rnd(torch.exp(st - m[:, :, None, qs]) * inv_l[:, :, None, qs])
+            dpt = mm(vf[:, :, ks], gf[:, :, qs].transpose(-1, -2))
             pdt = pt
             if rate:
                 kept = ((words[:, :, keys // 32, qs] >> (keys % 32)[:, None]) & 1).bool()
-                pdt = torch.where(kept, _bf16(pt * inv_keep), torch.zeros(()))
+                pdt = torch.where(kept, rnd(pt * inv_keep), torch.zeros(()))
                 dpt = torch.where(kept, dpt * inv_keep, torch.zeros(()))
-            dst = _bf16(pt * (dpt - delta[:, :, None, qs]) * scale)
-            dv[:, :, ks] += pdt @ gf[:, :, qs]
-            dk[:, :, ks] += dst @ qf[:, :, qs]
-            partials[j][i] = dst.transpose(-1, -2) @ kf[:, :, ks]
-    # each query tile's partials added in key-tile order
-    dq = torch.cat([functools.reduce(torch.add, (partials[j][i] for j in range(nkt)))
+            dst = rnd(pt * (dpt - delta[:, :, None, qs]) * scale)
+            dv[:, :, ks] += mm(pdt, gf[:, :, qs])
+            dk[:, :, ks] += mm(dst, qf[:, :, qs])
+            partials[j][i] = mm(dst.transpose(-1, -2), kf[:, :, ks])
+
+    def order(i):  # the key tiles whose partials query tile i takes, in turn
+        first = i // (bk // bq) if rotate else 0
+        return [(first - n) % nkt for n in range(nkt)] if rotate else range(nkt)
+
+    dq = torch.cat([functools.reduce(torch.add, (partials[j][i] for j in order(i)))
                     for i in range(nqt)], dim=2)
-    return tuple(x.permute(0, 2, 1, 3).to(torch.bfloat16) for x in (dq, dk, dv))
+    return tuple(x.permute(0, 2, 1, 3).to(dtype) for x in (dq, dk, dv))
 
 
-def _one_key_inputs(t):
-    """bf16 inputs with a half-padded, a fully padded and a one-key example:
-    the last attends to key 3 alone, where a delta taken from the rounded
-    output fails (the cancellation in dP - delta is exact only from P)."""
+def _one_key_inputs(t, dtype=torch.bfloat16):
+    """Inputs with a half-padded, a fully padded and a one-key example: the
+    last attends to key 3 alone, where a delta taken from the rounded output
+    fails (the cancellation in dP - delta is exact only from P)."""
     q, k, v, bias, g = _inputs(b=4, t=t, d=32, seed=t)
     bias[3, :] = -1e9
     bias[3, 3] = 0.0
-    return (*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
-            torch.from_numpy(bias), torch.from_numpy(g).to(torch.bfloat16))
+    return (*(torch.from_numpy(a).to(dtype) for a in (q, k, v)),
+            torch.from_numpy(bias), torch.from_numpy(g).to(dtype))
+
+
+# The fp32 schedule at toy size: as in the kernels (32 queries a step, 64
+# keys a block at D <= 192), two query tiles to a key tile, the dQ partials
+# in the rotated order
+F32_SCHEDULE = dict(bq=8, bk=16, dtype=torch.float32, rotate=True)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -269,6 +288,69 @@ def test_emulated_bf16_schedule_matches_the_plain_backward(t, rate):
     for a, w in zip(got, want):
         assert torch.isfinite(a.float()).all()
         np.testing.assert_allclose(a.float().numpy(), w.float().numpy(), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t", [33, 48])
+def test_emulated_fp32_schedule_matches_the_plain_backward(t, rate):
+    q, k, v, bias, g = _one_key_inputs(t, torch.float32)
+    seeds = torch.tensor([4, -9, 2 ** 31 - 1, 77], dtype=torch.int32)
+    got = _emulated_schedule(q, k, v, bias, g, seeds, rate, **F32_SCHEDULE)
+    want = ta.fused_attention_bwd_plain(q, k, v, bias, g, seeds, rate)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), w.numpy(), **TOL["float32"])
+
+
+def _tf32_truncate(x):
+    """What the tensor cores read of an fp32 operand: its TF32 part, the low
+    13 bits of the mantissa dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """The fp32 backward kernels' products: each operand split into hi, v
+    rounded to TF32 (``tf32_round``), and lo = v - hi read truncated to TF32
+    (``csrc/attention_bwd.cu::split_tf32_alu``), and lo·hi + hi·lo + hi·hi
+    summed in fp32."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = _tf32_truncate(a - ah), _tf32_truncate(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+@pytest.mark.parametrize("split", ["lo_rounded", "lo_truncated"])
+def test_emulated_fp32_schedule_in_3xtf32_holds_the_kernel_tolerance(split):
+    """Every product of the fp32 schedule in 3xTF32, lo rounded to TF32 as
+    ``einsum_3xtf32`` rounds it or read truncated as the kernels read it,
+    against the fp32 plain backward at chip_smoke.py's fp32 tolerance."""
+    q, k, v, bias, g = _one_key_inputs(48, torch.float32)
+    seeds = torch.tensor([4, -9, 2 ** 31 - 1, 77], dtype=torch.int32)
+    mm = (functools.partial(einsum_3xtf32, "...ij,...jk->...ik") if split == "lo_rounded"
+          else _matmul_3xtf32)
+    got = _emulated_schedule(q, k, v, bias, g, seeds, 0.1, **F32_SCHEDULE, mm=mm)
+    want = ta.fused_attention_bwd_plain(q, k, v, bias, g, seeds, 0.1)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=KERNEL_TOL["rtol"],
+                                   atol=KERNEL_TOL["atol"])
+
+
+def test_query_tiles_of_the_counters_are_the_fused_passes():
+    """The wrapper sizes the dQ counters by the fused passes' query tiles:
+    ``_bwd_query_tile`` against the constants of csrc/attention_bwd.cu."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(ta.__file__).parents[1] / "csrc" / "attention_bwd.cu").read_text()
+
+    def bq(struct):
+        body = src[src.index(f"struct {struct} {{"):]
+        return re.search(r"static constexpr int BQ = ([^;]+);", body).group(1)
+
+    assert bq("BwdFusedTc") == "64"
+    assert bq("BwdFusedF32") == "D > 192 ? 16 : 32"
+    for d in (32, 64, 96, 128, 192, 256):
+        assert ta._bwd_query_tile(d, True) == 64
+        assert ta._bwd_query_tile(d, False) == (16 if d > 192 else 32)
 
 
 def test_keep_words_round_trip_the_philox_mask():
