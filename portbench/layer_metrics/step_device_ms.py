@@ -1,0 +1,8 @@
+"""Rank model: device ms of kernels per step in the traced stretch."""
+
+
+def read(ctx):
+    steps = ctx.bounds.get("steps")
+    if ctx.trace is None or not steps or not ctx.trace.kernel_count():
+        return None
+    return 1e3 * ctx.trace.kernel_seconds() / steps
