@@ -13,9 +13,12 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from emotts_torch.utils.trace import span
 
 
 class BucketLoader:
@@ -41,6 +44,10 @@ class BucketLoader:
         ``collate`` decided on the full global batch, as the frame bucket is
         (e.g. the FastSpeech2 phone bucket), so that every process collates
         the same shapes.
+
+    ``stats`` counts the batches built and the seconds spent building them
+    (file reads and collation, on the prefetch thread: the span
+    ``loader.build``); the trainers log its growth over each epoch.
     """
 
     def __init__(
@@ -83,6 +90,8 @@ class BucketLoader:
         self.process_count = process_count
         self.batch_shape = batch_shape
         self._lengths: Optional[List[int]] = None
+        self.stats = {"batches": 0, "build_s": 0.0}
+        self._stats_lock = threading.Lock()  # two epochs' threads may overlap
 
     def _bucket_of(self, length: int) -> int:
         for b in self.buckets:
@@ -132,24 +141,29 @@ class BucketLoader:
         return len(self.plan_epoch(epoch))
 
     def _make_batch(self, idxs: List[int]):
-        self._ensure_lengths()
-        # shapes are decided on the FULL (global) batch so that every
-        # process collates the same ones, THEN this process loads its rows
-        bucket = self._bucket_of(max(self._lengths[i] for i in idxs))
-        extra = self.batch_shape(idxs) if self.batch_shape is not None else {}
-        # pre-pad chunks hold unique indices (a shuffled permutation slice);
-        # pad_to_multiple appends cyclic duplicates at the END, so the valid
-        # prefix length is exactly the unique-index count
-        n_valid = len(set(idxs))
-        row_valid = np.zeros(len(idxs), dtype=np.float32)
-        row_valid[:n_valid] = 1.0
-        if self.process_count > 1:
-            per = len(idxs) // self.process_count
-            lo = self.process_index * per
-            idxs = idxs[lo : lo + per]
-            row_valid = row_valid[lo : lo + per]
-        batch = self.collate([self.dataset[i] for i in idxs], bucket, **extra)
-        batch["row_valid"] = row_valid
+        t0 = time.perf_counter()
+        with span("loader.build"):
+            self._ensure_lengths()
+            # shapes are decided on the FULL (global) batch so that every
+            # process collates the same ones, THEN this process loads its rows
+            bucket = self._bucket_of(max(self._lengths[i] for i in idxs))
+            extra = self.batch_shape(idxs) if self.batch_shape is not None else {}
+            # pre-pad chunks hold unique indices (a shuffled permutation slice);
+            # pad_to_multiple appends cyclic duplicates at the END, so the valid
+            # prefix length is exactly the unique-index count
+            n_valid = len(set(idxs))
+            row_valid = np.zeros(len(idxs), dtype=np.float32)
+            row_valid[:n_valid] = 1.0
+            if self.process_count > 1:
+                per = len(idxs) // self.process_count
+                lo = self.process_index * per
+                idxs = idxs[lo : lo + per]
+                row_valid = row_valid[lo : lo + per]
+            batch = self.collate([self.dataset[i] for i in idxs], bucket, **extra)
+            batch["row_valid"] = row_valid
+        with self._stats_lock:
+            self.stats["batches"] += 1
+            self.stats["build_s"] += time.perf_counter() - t0
         return batch
 
     def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:

@@ -15,6 +15,9 @@ endpoints over the existing engines:
   requests that share a phone bucket run as ONE forward
   (``Synthesizer.synthesize_requests``), so device work is O(#distinct
   buckets), not O(#requests).
+* ``GET /stats`` — cumulative counters as JSON: the engine's
+  (``Synthesizer.stats``), the micro-batcher's (``_MicroBatcher.stats``,
+  null with batching off) and the kernels' launch counts.
 
 Single-process, stdlib-only (``ThreadingHTTPServer``): connection handling
 is threaded, device work serializes through one lock.  Concurrent plain
@@ -39,6 +42,9 @@ import wave
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
+
+from emotts_torch.ops import attention, mrf, resblock
+from emotts_torch.utils.trace import span
 
 
 def _pcm16(y: np.ndarray) -> bytes:
@@ -73,6 +79,12 @@ class _MicroBatcher:
     adapts to however many requests one device round-trip takes to serve.
     Submitting threads block on a per-request event; engine errors
     propagate to every request of the failing group only.
+
+    ``stats`` counts the requests taken, the engine calls made
+    (``dispatches``) and each request's wait from ``submit`` to the
+    snapshot that takes it (``queue_wait_s``, summed, and its largest);
+    the worker thread alone writes it.  The worker's phases are the spans
+    ``batcher.collect`` and ``batcher.dispatch`` (one per engine call).
     """
 
     def __init__(self, service, window_s: float = 0.005,
@@ -82,6 +94,8 @@ class _MicroBatcher:
         self.max_batch = int(max_batch)
         self._cv = threading.Condition()
         self._queue: list = []
+        self.stats = {"requests": 0, "dispatches": 0, "queue_wait_s": 0.0,
+                      "queue_wait_max_s": 0.0}
         self._worker = threading.Thread(
             target=self._run, name="tts-microbatch", daemon=True
         )
@@ -89,7 +103,7 @@ class _MicroBatcher:
 
     def submit(self, parsed: dict) -> np.ndarray:
         item = {"req": parsed, "done": threading.Event(),
-                "result": None, "error": None}
+                "result": None, "error": None, "queued": time.perf_counter()}
         with self._cv:
             self._queue.append(item)
             self._cv.notify()
@@ -103,11 +117,18 @@ class _MicroBatcher:
             with self._cv:
                 while not self._queue:
                     self._cv.wait()
-            if self.window_s > 0:
-                time.sleep(self.window_s)  # let concurrent arrivals join
-            with self._cv:
-                batch = self._queue[: self.max_batch]
-                del self._queue[: self.max_batch]
+            with span("batcher.collect"):
+                if self.window_s > 0:
+                    time.sleep(self.window_s)  # let concurrent arrivals join
+                with self._cv:
+                    batch = self._queue[: self.max_batch]
+                    del self._queue[: self.max_batch]
+                taken = time.perf_counter()
+                waits = [taken - item["queued"] for item in batch]
+                self.stats["requests"] += len(batch)
+                self.stats["queue_wait_s"] += sum(waits)
+                self.stats["queue_wait_max_s"] = max(
+                    self.stats["queue_wait_max_s"], *waits)
             self._dispatch(batch)
 
     def _dispatch(self, batch: list) -> None:
@@ -119,8 +140,9 @@ class _MicroBatcher:
             key = (r["pace"], r["pitch_rate"], r["energy_rate"])
             groups.setdefault(key, []).append(item)
         for (pace, pr, er), items in groups.items():
+            self.stats["dispatches"] += 1
             try:
-                with self.service.lock:
+                with span("batcher.dispatch"), self.service.lock:
                     wavs = self.service.synth.synthesize_requests(
                         [it["req"] for it in items],
                         pace=pace, pitch_rate=pr, energy_rate=er,
@@ -163,6 +185,23 @@ class TTSService:
             _MicroBatcher(self, window_s=microbatch_window_ms / 1000.0)
             if microbatch_window_ms >= 0 else None
         )
+
+    def stats(self) -> dict:
+        """Cumulative counters (``GET /stats``): the engine's work, the
+        micro-batcher's requests, engine calls and queue waits (None with
+        batching off), and the launches of the package's kernels."""
+        return {
+            "engine": dict(self.synth.stats),
+            "batcher": None if self.batcher is None else dict(self.batcher.stats),
+            "launches": {
+                "attention": attention.launch_count,
+                "attention_fp32": attention.fp32_launch_count,
+                "attention_bwd": attention.bwd_launch_count,
+                "attention_bwd_fp32": attention.fp32_bwd_launch_count,
+                "mrf": mrf.launch_count,
+                "resblock": resblock.launch_count,
+            },
+        }
 
     def _resolve(self, value, table, what: str) -> int:
         from emotts_torch.infer.synthesize import resolve_name
@@ -349,6 +388,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "sample_rate": svc.cfg.audio.sampling_rate,
                 "vocoder": svc.synth.vocoder_params is not None,
             })
+        elif self.path == "/stats":
+            self._json(200, svc.stats())
         else:
             self._json(404, {"error": f"no route {self.path}"})
 

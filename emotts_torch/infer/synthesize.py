@@ -46,6 +46,7 @@ from emotts_torch.text.segment import split_sentences
 from emotts_torch.train.checkpoint import load_best_params
 from emotts_torch.train.fs2_trainer import build_fastspeech2
 from emotts_torch.utils.config import Config
+from emotts_torch.utils.trace import span
 
 
 def resolve_name(value, table, what: str) -> int:
@@ -169,6 +170,13 @@ class Synthesizer:
             neural=cfg.inference.neural_g2p,
             neural_beam=cfg.inference.neural_g2p_beam,
         )
+        # cumulative counts of the engine's work (``GET /stats``):
+        # ``synthesize_requests`` calls, their requests and sentences, their
+        # FastSpeech2 forwards and the content frames those returned; and the
+        # frames ``vocode`` handed to the generator (rows × frames, chunk
+        # padding included)
+        self.stats = dict(calls=0, requests=0, sentences=0, fs2_forwards=0,
+                          content_frames=0, vocoded_frames=0)
 
     # -- device cores ------------------------------------------------------
 
@@ -376,6 +384,7 @@ class Synthesizer:
                   if row_frame_budget is None else row_frame_budget)
         b, t = int(mel.shape[0]), int(mel.shape[1])
         if budget <= 0 or b * t <= budget:
+            self.stats["vocoded_frames"] += b * t
             return self._vocode(mel)
         # rows per chunk such that every dispatch honors the budget; a
         # single row longer than the budget dispatches alone
@@ -387,6 +396,7 @@ class Synthesizer:
             pad = k - int(chunk.shape[0])
             if pad:  # keep ONE dispatch shape
                 chunk = F.pad(chunk, (0, 0, 0, 0, 0, pad))
+            self.stats["vocoded_frames"] += k * t
             pcm = self._vocode(chunk)
             outs.append(pcm[: k - pad] if pad else pcm)
         return torch.cat(outs, dim=0)
@@ -460,9 +470,55 @@ class Synthesizer:
 
         Returns one float32 waveform per request (sentences joined with
         ``gap_s`` of silence).  Prosody controls are shared per call.
+
+        Its phases are spans (``utils/trace.py``): ``engine.call`` holds
+        ``engine.text`` (sentence split and G2P of every request), one
+        ``engine.group`` a phone bucket (``engine.condition``, ``engine.fs2``,
+        ``engine.vocode``, ``engine.readback``, ``engine.pcm``) and
+        ``engine.assemble``; its work adds to ``stats``.
         """
         if self.vocoder is None:
             raise RuntimeError("synthesize_requests requires vocoder params")
+        cfg = self.cfg
+        with span("engine.call"):
+            with span("engine.text"):
+                segs = self._segments(requests)
+
+            groups: Dict[int, list] = {}
+            for seg in segs:
+                pb = pick_bucket(len(seg[2]), cfg.bucketing.phone_buckets)
+                if pb < 0:
+                    pb = len(seg[2])
+                groups.setdefault(pb, []).append(seg)
+
+            pieces: Dict[Tuple[int, int], np.ndarray] = {}
+            for pb, rows in sorted(groups.items()):
+                with span("engine.group"):
+                    self._render_group(pb, rows, pieces, pace, pitch_rate,
+                                       energy_rate)
+
+            with span("engine.assemble"):
+                gap = np.zeros(int(gap_s * cfg.audio.sampling_rate), np.float32)
+                parts_by_request: list = [[] for _ in requests]
+                for r_i, s_i, *_ in segs:  # segs is ordered by (request, sentence)
+                    parts_by_request[r_i].append(pieces[(r_i, s_i)])
+                out = []
+                for parts in parts_by_request:
+                    chunks: list = []
+                    for i, piece in enumerate(parts):
+                        if i:
+                            chunks.append(gap)
+                        chunks.append(piece)
+                    out.append(np.concatenate(chunks))
+        self.stats["calls"] += 1
+        self.stats["requests"] += len(requests)
+        self.stats["sentences"] += len(segs)
+        return out
+
+    def _segments(self, requests) -> list:
+        """Every request's sentences as phone ids, in (request, sentence)
+        order: ``(request_idx, order_in_request, ids, spk_spec, emo_mix,
+        scale)``."""
         cfg = self.cfg
 
         def _spk_spec(r):
@@ -498,7 +554,7 @@ class Synthesizer:
                 raise ValueError("emotion_mix weights must sum > 0")
             return [(e, l, w / total) for e, l, w in out]
 
-        segs = []  # (request_idx, order_in_request, ids, spk_spec, emo_mix, scale)
+        segs = []
         for r_i, r in enumerate(requests):
             if r.get("phonemes"):
                 # direct ARPABET input (pronunciation override / SSML
@@ -530,29 +586,27 @@ class Synthesizer:
                     r_i, s_i, ids, _spk_spec(r), _emo_mix(r),
                     float(r.get("scale", 1.0)),
                 ))
+        return segs
 
-        groups: Dict[int, list] = {}
-        for g_i, seg in enumerate(segs):
-            pb = pick_bucket(len(seg[2]), cfg.bucketing.phone_buckets)
-            if pb < 0:
-                pb = len(seg[2])
-            groups.setdefault(pb, []).append(g_i)
-
-        pieces: Dict[Tuple[int, int], np.ndarray] = {}
+    def _render_group(self, pb: int, rows: list, pieces: dict, pace: float,
+                      pitch_rate: float, energy_rate: float) -> None:
+        """One FastSpeech2 + vocoder pass over the segments ``rows`` of phone
+        bucket ``pb``; each row's float32 waveform goes into ``pieces``
+        under (request_idx, order_in_request)."""
+        cfg = self.cfg
         hop = cfg.audio.hop_length
-        for pb, idxs in sorted(groups.items()):
-            b = len(idxs)
+        b = len(rows)
+        with span("engine.condition"):
             phon = np.zeros((b, pb), np.int32)
             inten = np.zeros((b, pb, cfg.n_emotions), np.float32)
             # one blended row ⇒ the whole batch uses the weights path
             # (pure rows become one-hot, numerically identical to id lookup)
-            blended = any(isinstance(segs[g][3], np.ndarray) for g in idxs)
+            blended = any(isinstance(seg[3], np.ndarray) for seg in rows)
             if blended:
                 spk = np.zeros((b, cfg.n_speakers), np.float32)
             else:
                 spk = np.zeros((b,), np.int32)
-            for row, g_i in enumerate(idxs):
-                r_i, s_i, ids, spk_spec, emo_mix, scale = segs[g_i]
+            for row, (r_i, s_i, ids, spk_spec, emo_mix, scale) in enumerate(rows):
                 phon[row, : len(ids)] = ids
                 if blended:
                     if isinstance(spk_spec, np.ndarray):
@@ -564,35 +618,27 @@ class Synthesizer:
                 inten[row, : len(ids)] = self.intensity_for_mix(
                     spk_spec, emo_mix, len(ids), scale=scale
                 )
+            phon, spk, inten = (self._to_device(phon), self._to_device(spk),
+                                self._to_device(inten))
+        with span("engine.fs2"):
             mel, mel_lens = self._mel_forward(
-                self._to_device(phon), self._to_device(spk),
-                self._to_device(inten), cfg.fastspeech2.max_mel_len,
+                phon, spk, inten, cfg.fastspeech2.max_mel_len,
                 pace, pitch_rate, energy_rate,
             )
+        with span("engine.vocode"):
             pcm = self.vocode(mel)  # int16 (B, T·hop) on device
+        with span("engine.readback"):
             lens = mel_lens.cpu().numpy()
             t_max = int(lens.max()) * hop
             pcm_np = pcm[:, :t_max].cpu().numpy()
-            for row, g_i in enumerate(idxs):
-                r_i, s_i = segs[g_i][0], segs[g_i][1]
+        with span("engine.pcm"):
+            for row, (r_i, s_i, *_) in enumerate(rows):
                 pieces[(r_i, s_i)] = (
                     pcm_np[row, : int(lens[row]) * hop].astype(np.float32)
                     / 32767.0
                 )
-
-        gap = np.zeros(int(gap_s * cfg.audio.sampling_rate), np.float32)
-        parts_by_request: list = [[] for _ in requests]
-        for r_i, s_i, *_ in segs:  # segs is ordered by (request, sentence)
-            parts_by_request[r_i].append(pieces[(r_i, s_i)])
-        out = []
-        for parts in parts_by_request:
-            chunks: list = []
-            for i, piece in enumerate(parts):
-                if i:
-                    chunks.append(gap)
-                chunks.append(piece)
-            out.append(np.concatenate(chunks))
-        return out
+        self.stats["fs2_forwards"] += 1
+        self.stats["content_frames"] += int(lens.sum())
 
     def synthesize_ssml(
         self,

@@ -46,6 +46,7 @@ from emotts_torch.ops.attention import fused_attention
 from emotts_torch.parallel.mesh import base_generator, draw_rows, row_index
 from emotts_torch.parallel.tp import (ModelAxis, copy_to_model, offset_seeds,
                                       reduce_from_model)
+from emotts_torch.utils.trace import span
 
 
 def dropout(x: torch.Tensor, rate: float, generator,
@@ -100,9 +101,11 @@ def sinusoidal_positional_encoding(length: int, d_model: int) -> np.ndarray:
 
 def positional_encoding_like(x: torch.Tensor, d_model: int,
                              max_len: int = 4096) -> torch.Tensor:
-    """The (1, T, D) table for ``x`` (B, T, D), on its device and dtype."""
-    pe = sinusoidal_positional_encoding(min(x.shape[1], max_len), d_model)
-    return torch.from_numpy(pe).to(device=x.device, dtype=x.dtype)
+    """The (1, T, D) table for ``x`` (B, T, D), on its device and dtype
+    (made on the host at every call: the span ``positions``)."""
+    with span("positions"):
+        pe = sinusoidal_positional_encoding(min(x.shape[1], max_len), d_model)
+        return torch.from_numpy(pe).to(device=x.device, dtype=x.dtype)
 
 
 class CastLinear(nn.Linear):
@@ -336,10 +339,11 @@ class FFTStack(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            if remat:
-                x = _rematerialized(layer, x, key_valid, deterministic, generator)
-            else:
-                x = layer(x, key_valid, deterministic, generator)
+            with span("fft_block"):
+                if remat:
+                    x = _rematerialized(layer, x, key_valid, deterministic, generator)
+                else:
+                    x = layer(x, key_valid, deterministic, generator)
         if self.final_norm is not None:
             x = self.final_norm(x).to(self.dtype)
         return x

@@ -34,6 +34,7 @@ from emotts_torch.nn.blocks import (CastConv1d, CastLinear, FFTStack,
 from emotts_torch.nn.length_regulator import (average_over_durations,
                                               length_regulate)
 from emotts_torch.utils.config import FastSpeech2Config
+from emotts_torch.utils.trace import span
 
 
 class EncoderPreNet(nn.Module):
@@ -266,62 +267,70 @@ class FastSpeech2(nn.Module):
         token_valid = tokens != c.padding_idx  # (B, P)
         tmask = token_valid[..., None].to(f32)
 
+        # each stage is a span (utils/trace.py), each FFT block its own, so
+        # that a profile names the host time between launches by stage
         # ---------------- encoder ----------------
         det, gen = deterministic, generator
-        feats = self.prenet(tokens, det, gen).to(f32)
-        feats = (feats + positional_encoding_like(feats, c.enc_d_model)) * tmask
+        with span("fs2.prenet"):
+            feats = self.prenet(tokens, det, gen).to(f32)
+            feats = (feats + positional_encoding_like(feats, c.enc_d_model)) * tmask
         feats = self.encoder(feats, token_valid, det, gen).to(f32) * tmask
 
         # ------------- conditioning: speaker ⊕ intensity -------------
-        if speakers.dim() == 2:
-            spk = speakers.to(f32) @ self.speaker_emb.weight
-        else:
-            spk = self.speaker_emb(speakers)
-        spk = spk[:, None, :].expand(b, p, c.enc_d_model)
-        if intensity is None:
-            intensity = feats.new_zeros((b, p, c.intensity_dim))
-        feats = self.concat_proj(torch.cat([feats, spk, intensity.to(f32)], dim=-1))
-        feats = feats * tmask
+        with span("fs2.condition"):
+            if speakers.dim() == 2:
+                spk = speakers.to(f32) @ self.speaker_emb.weight
+            else:
+                spk = self.speaker_emb(speakers)
+            spk = spk[:, None, :].expand(b, p, c.enc_d_model)
+            if intensity is None:
+                intensity = feats.new_zeros((b, p, c.intensity_dim))
+            feats = self.concat_proj(torch.cat([feats, spk, intensity.to(f32)], dim=-1))
+            feats = feats * tmask
 
         # ---------------- variance adaptors ----------------
-        log_durations = self.duration_predictor(feats, token_valid, det, gen)[..., 0]
-        pred_pitch = self.pitch_predictor(feats, token_valid, det, gen) * pitch_rate
-        avg_pitch = None
-        if pitch is not None and durations is not None:
-            avg_pitch = average_over_durations(pitch, durations)[..., None]
-            feats = feats + self.pitch_embed(avg_pitch) * tmask
-        else:
-            feats = feats + self.pitch_embed(pred_pitch.to(f32)) * tmask
+        with span("fs2.duration"):
+            log_durations = self.duration_predictor(feats, token_valid, det, gen)[..., 0]
+        with span("fs2.pitch"):
+            pred_pitch = self.pitch_predictor(feats, token_valid, det, gen) * pitch_rate
+            avg_pitch = None
+            if pitch is not None and durations is not None:
+                avg_pitch = average_over_durations(pitch, durations)[..., None]
+                feats = feats + self.pitch_embed(avg_pitch) * tmask
+            else:
+                feats = feats + self.pitch_embed(pred_pitch.to(f32)) * tmask
 
-        pred_energy = self.energy_predictor(feats, token_valid, det, gen) * energy_rate
-        avg_energy = None
-        if energy is not None and durations is not None:
-            avg_energy = average_over_durations(energy, durations)[..., None]
-            feats = feats + self.energy_embed(avg_energy) * tmask
-        else:
-            feats = feats + self.energy_embed(pred_energy.to(f32)) * tmask
+        with span("fs2.energy"):
+            pred_energy = self.energy_predictor(feats, token_valid, det, gen) * energy_rate
+            avg_energy = None
+            if energy is not None and durations is not None:
+                avg_energy = average_over_durations(energy, durations)[..., None]
+                feats = feats + self.energy_embed(avg_energy) * tmask
+            else:
+                feats = feats + self.energy_embed(pred_energy.to(f32)) * tmask
 
         # ---------------- length regulation ----------------
-        max_len = max_mel_len or c.max_mel_len
-        if durations is not None:
-            dur_frames = durations
-            if pace != 1.0:
-                dur_frames = torch.round(durations.to(f32) * pace).to(durations.dtype)
-        else:
-            dur = torch.clamp(torch.expm1(log_durations.to(f32)), min=0.0)
-            dur_frames = torch.round(dur * pace).to(torch.int32)
-        dur_frames = dur_frames * token_valid.to(dur_frames.dtype)
-        spec, mel_lens = length_regulate(feats, dur_frames, max_len)
+        with span("fs2.length_regulator"):
+            max_len = max_mel_len or c.max_mel_len
+            if durations is not None:
+                dur_frames = durations
+                if pace != 1.0:
+                    dur_frames = torch.round(durations.to(f32) * pace).to(durations.dtype)
+            else:
+                dur = torch.clamp(torch.expm1(log_durations.to(f32)), min=0.0)
+                dur_frames = torch.round(dur * pace).to(torch.int32)
+            dur_frames = dur_frames * token_valid.to(dur_frames.dtype)
+            spec, mel_lens = length_regulate(feats, dur_frames, max_len)
+            frame_valid = sequence_mask(mel_lens, max_len)
+            fmask = frame_valid[..., None].to(f32)
+            spec = (spec + positional_encoding_like(spec, c.dec_d_model)) * fmask
 
         # ---------------- decoder ----------------
-        frame_valid = sequence_mask(mel_lens, max_len)
-        fmask = frame_valid[..., None].to(f32)
-        spec = (spec + positional_encoding_like(spec, c.dec_d_model)) * fmask
         spec = self.decoder(spec, frame_valid, det, gen).to(f32)
-
-        mel_post = self.mel_head(spec) * fmask
-        residual = self.postnet(mel_post, det, gen)
-        postnet_mel = (mel_post + residual) * fmask
+        with span("fs2.postnet"):
+            mel_post = self.mel_head(spec) * fmask
+            residual = self.postnet(mel_post, det, gen)
+            postnet_mel = (mel_post + residual) * fmask
 
         return (mel_post, postnet_mel, log_durations, pred_pitch, avg_pitch,
                 pred_energy, avg_energy, mel_lens)

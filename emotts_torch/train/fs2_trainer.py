@@ -246,7 +246,8 @@ class FS2Trainer:
     def train_epoch(self, loader: BucketLoader, epoch: int, writer=None) -> Dict:
         avg = EpochAverager()
         timer = StepTimer(self.device)
-        for batch in loader.epoch(epoch):
+        build_s = loader.stats["build_s"]
+        for batch in timer.batches(loader.epoch(epoch)):
             avg.update(self.train_step(batch))
             timer.tick()
         means = avg.means()
@@ -255,6 +256,11 @@ class FS2Trainer:
             st = timer.mean_step_time()
             if st:
                 writer.scalar("train/step_time_s", st, epoch)
+            # the epoch's host seconds waiting on the loader, and the prefetch
+            # thread's seconds building batches
+            writer.scalar("train/loader_wait_s", timer.loader_wait_s, epoch)
+            writer.scalar("train/loader_build_s",
+                          loader.stats["build_s"] - build_s, epoch)
         return means
 
     def valid_epoch(self, loader: BucketLoader, epoch: int, writer=None,

@@ -11,9 +11,11 @@ import socket
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 import torch
+
+from emotts_torch.utils.trace import all_threads_config, span
 
 
 class MetricsWriter:
@@ -91,13 +93,28 @@ class StepTimer:
     """Rolling step-time meter (skips the first step, which pays for library
     start-up).  ``tick`` waits for the device before it reads the clock:
     PyTorch returns before the device finishes, and an unsynchronised clock
-    would time the enqueue."""
+    would time the enqueue.  ``batches`` sums the host time each step waited
+    for its batch into ``loader_wait_s``."""
 
     def __init__(self, device=None):
         self._cuda = device is not None and torch.device(device).type == "cuda"
         self._device = device
         self._t0: Optional[float] = None
         self._times = []
+        self.loader_wait_s = 0.0
+
+    def batches(self, batches: Iterable) -> Iterator:
+        """The items of ``batches``, each wait for the next one timed (and
+        inside a ``loader.wait`` span)."""
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            with span("loader.wait"):
+                batch = next(it, None)
+            self.loader_wait_s += time.perf_counter() - t0
+            if batch is None:
+                return
+            yield batch
 
     def tick(self) -> None:
         if self._cuda:
@@ -117,13 +134,16 @@ def profile_trace(out_dir: str, device):
     """``torch.profiler`` over the block (host activity and, on a CUDA
     device, the card's kernels), its Chrome trace written to
     ``<out_dir>/trace.json``: the counterpart of the reference's
-    ``jax.profiler.trace(<exp>/profile)`` around ``profile_epoch``."""
+    ``jax.profiler.trace(<exp>/profile)`` around ``profile_epoch``.  Every
+    thread is recorded where the installed torch can (the loader's prefetch
+    thread and its ``loader.build`` spans too), the profile's own elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 experimental_config=all_threads_config()) as prof:
         yield
         if cuda:
             torch.cuda.synchronize(device)

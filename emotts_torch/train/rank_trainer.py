@@ -51,6 +51,7 @@ from emotts_torch.train.state import TrainState, make_optimizer
 from emotts_torch.utils.config import Config
 from emotts_torch.utils.experiment import increment_path, set_seed
 from emotts_torch.utils.plotting import DEFAULT_COLORS, DEFAULT_MARKERS, plot_tsne
+from emotts_torch.utils.trace import span
 
 _BATCH_TENSORS = ("emo_x", "neu_x", "emotions", "lengths", "row_valid")
 
@@ -129,24 +130,34 @@ class RankTrainer:
     def train_step(self, batch: Dict[str, np.ndarray],
                    lambdas: Optional[torch.Tensor] = None) -> Dict[str, float]:
         """One optimizer step on a collated batch (this rank's rows of the
-        global batch); λ is drawn from the mixup generator unless given."""
+        global batch); λ is drawn from the mixup generator unless given.
+        Its phases are spans: ``train.step`` holds ``train.to_device``,
+        ``train.forward``, ``train.loss``, ``train.backward``,
+        ``train.optimizer`` and ``train.readback``."""
         rm = self.cfg.rank_model
         state, mesh = self.state, self.mesh
-        b = batch_to_device(batch, self.device)
-        preds = self._step_model(
-            b["emo_x"], b["neu_x"], b["emotions"], b["lengths"], lambdas,
-            deterministic=False,
-            mixup_generator=row_draws(state.generators["mixup"], mesh),
-            dropout_generator=row_draws(state.generators["dropout"], mesh),
-        )
-        loss, metrics = rank_loss(preds, b["emotions"], rm.alpha, rm.beta,
-                                  mesh=mesh)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        average_replicated_gradients(state.model, self.mesh)
-        state.optimizer.step()
-        state.step += 1
-        return _read_back(metrics)
+        with span("train.step"):
+            with span("train.to_device"):
+                b = batch_to_device(batch, self.device)
+            with span("train.forward"):
+                preds = self._step_model(
+                    b["emo_x"], b["neu_x"], b["emotions"], b["lengths"], lambdas,
+                    deterministic=False,
+                    mixup_generator=row_draws(state.generators["mixup"], mesh),
+                    dropout_generator=row_draws(state.generators["dropout"], mesh),
+                )
+            with span("train.loss"):
+                loss, metrics = rank_loss(preds, b["emotions"], rm.alpha, rm.beta,
+                                          mesh=mesh)
+            with span("train.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                average_replicated_gradients(state.model, self.mesh)
+            with span("train.optimizer"):
+                state.optimizer.step()
+                state.step += 1
+            with span("train.readback"):
+                return _read_back(metrics)
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, np.ndarray]) -> Tuple[Dict[str, float], np.ndarray]:
@@ -210,7 +221,8 @@ class RankTrainer:
     def train_epoch(self, loader: BucketLoader, epoch: int, writer=None) -> Dict:
         avg = EpochAverager()
         timer = StepTimer(self.device)
-        for batch in loader.epoch(epoch):
+        build_s = loader.stats["build_s"]
+        for batch in timer.batches(loader.epoch(epoch)):
             avg.update(self.train_step(batch))
             timer.tick()
         means = avg.means()
@@ -219,6 +231,11 @@ class RankTrainer:
             st = timer.mean_step_time()
             if st:
                 writer.scalar("train/step_time_s", st, epoch)
+            # the epoch's host seconds waiting on the loader, and the prefetch
+            # thread's seconds building batches
+            writer.scalar("train/loader_wait_s", timer.loader_wait_s, epoch)
+            writer.scalar("train/loader_build_s",
+                          loader.stats["build_s"] - build_s, epoch)
         return means
 
     def validate_epoch(self, loader: BucketLoader, epoch: int, writer=None,

@@ -529,6 +529,8 @@ def test_fit_writes_metrics_checkpoints_and_best_with_batch_stats(corpus, fitted
                  "dur_loss", "pitch_loss", "energy_loss"):
         for prefix in ("Loss/", "Valid/Loss/"):
             assert len(tags[prefix + name]) == 2 and np.isfinite(tags[prefix + name]).all()
+    for tag in ("train/loader_wait_s", "train/loader_build_s"):  # each epoch's seconds
+        assert len(tags[tag]) == 2 and all(v > 0 for v in tags[tag])
     # vocoded samples of the first validated epoch (every 10th at the
     # default cadence), predicted and ground truth, mel_len frames each
     wavs = sorted(os.listdir(os.path.join(exp, "wavs")))

@@ -4,6 +4,7 @@ corpus preprocessed by the JAX package."""
 
 import json
 import os
+from collections import defaultdict
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ from emotts_torch.data import BucketLoader, RankPairDataset, collate_rank_pairs
 from emotts_torch.infer.bucketize import (bucketize, compute_intensity_prototypes,
                                           prototype_spread)
 from emotts_torch.nn.convert import rank_from_flax
+from emotts_torch.train.metrics import profile_trace
 from emotts_torch.train.checkpoint import CheckpointManager, load_best_params
 from emotts_torch.train.rank_trainer import RankTrainer, build_rank_model
 from emotts_torch.utils.config import load_config
@@ -95,6 +97,38 @@ def test_loader_pads_a_trailing_batch_and_flags_the_repeats(corpus):
         assert len(a["row_valid"]) % 4 == 0
     with pytest.raises(ValueError):
         BucketLoader(got.dataset, [64], 6, collate_rank_pairs, pad_to_multiple=4)
+
+
+def test_profile_trace_records_the_loader_thread_and_the_step(corpus, tmp_path):
+    """An epoch under ``profile_trace``: the exported trace holds every
+    ``loader.build`` span, opened on the prefetch thread, beside the epoch's
+    ``loader.wait`` spans and each step's phases inside its ``train.step``
+    on the profile's own thread; the loader and the timer count the same
+    epoch."""
+    _, tcfg = corpus
+    trainer = RankTrainer(tcfg, device="cpu")
+    loader = trainer._loader("train", shuffle=True)
+    with profile_trace(str(tmp_path), "cpu"):
+        trainer.train_epoch(loader, 0)
+    n = trainer.state.step
+    assert n == loader.stats["batches"] == loader.batches_per_epoch(0) > 0
+    assert loader.stats["build_s"] > 0
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = defaultdict(list)
+    for e in events:
+        if e.get("name", "").startswith("emotts_torch."):
+            spans[e["name"][len("emotts_torch."):]].append(e)
+    build, wait = spans["loader.build"], spans["loader.wait"]
+    assert len(build) == n and len(wait) == n + 1  # the last wait finds the end
+    main = {e["tid"] for e in wait}
+    assert len(main) == 1 and {e["tid"] for e in build}.isdisjoint(main)
+    steps = spans["train.step"]
+    assert len(steps) == n and {e["tid"] for e in steps} == main
+    for phase in ("to_device", "forward", "loss", "backward", "optimizer", "readback"):
+        inside = [e for e in spans["train." + phase]
+                  if any(s["ts"] <= e["ts"] and e["ts"] + e["dur"] <= s["ts"] + s["dur"]
+                         for s in steps)]
+        assert len(inside) == n, phase
 
 
 @pytest.fixture(scope="module")
@@ -232,6 +266,8 @@ def test_fit_writes_metrics_checkpoints_and_best(corpus, fitted):
     for tag in ("train/loss", "train/mixup_loss", "train/rank_loss", "valid/loss",
                 "valid/loss_informative", "valid/pair_order_acc"):
         assert len(tags[tag]) == 2 and np.isfinite(tags[tag]).all()
+    for tag in ("train/loader_wait_s", "train/loader_build_s"):  # each epoch's seconds
+        assert len(tags[tag]) == 2 and all(v > 0 for v in tags[tag])
     ckpt = CheckpointManager(exp, keep=tcfg.train_rank.keep_checkpoints)
     assert ckpt.latest_step() == trainer.state.step and len(ckpt.steps()) == 2
     best = load_best_params(exp)

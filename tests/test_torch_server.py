@@ -5,6 +5,7 @@ import base64
 import io
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 import wave
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from emotts_torch.infer.server import TTSRequestError, TTSService, make_server
+from emotts_torch.infer.server import (TTSRequestError, TTSService, _MicroBatcher,
+                                       make_server)
 from emotts_torch.infer.synthesize import Synthesizer, build_fastspeech2
 from emotts_torch.nn.hifigan import HiFiGANGenerator
 from emotts_torch.nn.init import seeded_init_
@@ -164,3 +166,66 @@ def test_http_errors_and_streaming_refusal(served):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(base, "/nowhere", {"text": "x"})
     assert e.value.code == 404
+
+
+def test_microbatcher_counts_every_request_and_its_wait(stack):
+    """Three requests queue while the engine holds a first one: the
+    batcher counts all four, two engine calls, and the three waits that
+    lasted at least as long as the hold."""
+    cfg, synth = stack
+    parse = TTSService(cfg, synth, microbatch_window_ms=-1, device="cpu").parse
+    entered, release = threading.Event(), threading.Event()
+
+    class Held:  # the engine, held inside its first call until released
+        def synthesize_requests(self, reqs, **kw):
+            entered.set()
+            assert release.wait(timeout=60)
+            return [np.zeros(4, np.float32) for _ in reqs]
+
+    batcher = _MicroBatcher(type("Service", (), {"lock": threading.Lock(),
+                                                 "synth": Held()})())
+    req = parse({"text": "Hi.", "speaker": 0, "emotion": 0})
+    clients = [threading.Thread(target=batcher.submit, args=(req,))]
+    clients[0].start()
+    assert entered.wait(timeout=30)
+    clients += [threading.Thread(target=batcher.submit, args=(req,)) for _ in range(3)]
+    for c in clients[1:]:
+        c.start()
+    deadline = time.monotonic() + 30
+    while len(batcher._queue) < 3 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    held_s = 0.05
+    time.sleep(held_s)
+    release.set()
+    for c in clients:
+        c.join(timeout=30)
+        assert not c.is_alive()
+    st = batcher.stats
+    assert st["requests"] == 4 and st["dispatches"] == 2
+    assert st["queue_wait_s"] >= 3 * held_s + batcher.window_s
+    assert held_s <= st["queue_wait_max_s"] <= st["queue_wait_s"]
+
+
+def test_http_stats(served):
+    """``GET /stats`` returns the engine's, the batcher's and the kernels'
+    counters; one ``/synthesize`` moves the first two."""
+    _, base = served
+
+    def stats():
+        with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+            assert r.headers["Content-Type"] == "application/json"
+            return json.loads(r.read())
+
+    before = stats()
+    with _post(base, "/synthesize", {"text": "Count me.", "speaker": 0, "emotion": 1}) as r:
+        r.read()
+    after = stats()
+    assert set(after) == {"engine", "batcher", "launches"}
+    assert set(after["launches"]) == {"attention", "attention_fp32", "attention_bwd",
+                                      "attention_bwd_fp32", "mrf", "resblock"}
+    eng = {k: after["engine"][k] - before["engine"][k] for k in before["engine"]}
+    assert eng["calls"] == eng["requests"] == eng["sentences"] == eng["fs2_forwards"] == 1
+    assert eng["vocoded_frames"] >= eng["content_frames"] > 0
+    bat = {k: after["batcher"][k] - before["batcher"][k] for k in before["batcher"]}
+    assert bat["requests"] == bat["dispatches"] == 1
+    assert bat["queue_wait_s"] >= 0.005  # the collection window, at least

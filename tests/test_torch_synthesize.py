@@ -2,6 +2,8 @@
 Synthesizer and the port's (device "cpu", fp32, lexicon/rule G2P), with
 weights made from a numpy seed and handed to both."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -9,6 +11,7 @@ import torch
 from emotts.infer.synthesize import Synthesizer as JaxSynthesizer
 from emotts.utils.config import Config as JaxConfig
 from emotts_torch.infer.synthesize import Synthesizer, pick_bucket, resolve_name
+from emotts_torch.utils import trace
 from emotts_torch.utils.config import Config
 from tests.torch_port_util import (SMALL_VOCODER, fs2_variables, shrink,
                                    vocoder_params,
@@ -22,6 +25,22 @@ VOCODER = dict(SMALL_VOCODER, in_channels=80, upsample_rates=(8, 8, 2, 2),
 # waveform in (-1, 1)), i.e. under one step of 32767; truncation to int16
 # can turn that into one whole step.
 PCM_STEPS = 1
+# one sentence each: three requests of the 16-phone bucket, one of the 32
+FOUR_REQUESTS = [
+    {"text": "Hello there.", "speaker": 0, "emotion": 1, "level": 1.0},
+    {"text": "Quite well.", "speaker": 1, "emotion": 0},
+    {"text": "Blended voice.", "speaker": 2, "emotion": 2, "level": 2.0},
+    {"text": "The quick brown fox jumps over it.", "speaker": 1, "emotion": 2},
+]
+GROUP_PHASES = ["engine.condition", "engine.fs2", "engine.vocode",
+                "engine.readback", "engine.pcm"]
+
+
+def _cpu_profile():
+    """The profiler without Kineto: it sets the flag ``span`` reads and
+    nests spans as ``torch.profiler.profile`` does, and starts in
+    milliseconds where Kineto's first start in a process takes seconds."""
+    return torch.autograd.profiler.profile(use_kineto=False)
 
 
 @pytest.fixture(scope="module")
@@ -121,3 +140,75 @@ def test_cuda_is_the_default_device_and_raises_without_a_card(pair):
     _, tsynth = pair
     with pytest.raises(RuntimeError, match="GPU"):
         Synthesizer(shrink(Config()), tsynth.model.state_dict())
+
+
+def test_engine_spans_nest_under_the_profiler(pair):
+    """One call under the profiler: ``engine.call`` holds ``engine.text``,
+    one ``engine.group`` per phone bucket with its five phases in order,
+    and ``engine.assemble``; ``engine.fs2`` holds FastSpeech2's stages and
+    FFT blocks in order, the positional tables inside two of them."""
+    _, tsynth = pair
+    with _cpu_profile() as prof:
+        tsynth.synthesize_requests(FOUR_REQUESTS)
+    spans = sorted((e for e in prof.function_events if e.name.startswith(trace.PREFIX)),
+                   key=lambda e: e.time_range.start)
+
+    def children(parent):
+        return [e for e in spans if e.cpu_parent is parent]
+
+    def name(e):
+        return e.name[len(trace.PREFIX):]
+
+    (call,) = [e for e in spans if name(e) == "engine.call"]
+    assert call.cpu_parent is None
+    assert [name(e) for e in children(call)] == [
+        "engine.text", "engine.group", "engine.group", "engine.assemble"]
+    f = tsynth.cfg.fastspeech2
+    fs2_stages = (["fs2.prenet"] + ["fft_block"] * f.enc_num_layers
+                  + ["fs2.condition", "fs2.duration", "fs2.pitch", "fs2.energy",
+                     "fs2.length_regulator"]
+                  + ["fft_block"] * f.dec_num_layers + ["fs2.postnet"])
+    for group in children(call)[1:3]:
+        phases = children(group)
+        assert [name(e) for e in phases] == GROUP_PHASES
+        stages = children(phases[1])  # engine.fs2: FastSpeech2's forward
+        assert [name(e) for e in stages] == fs2_stages
+        for stage in stages:  # the positional tables of encoder and decoder
+            want = ["positions"] if name(stage) in ("fs2.prenet", "fs2.length_regulator") else []
+            assert [name(e) for e in children(stage)] == want
+    engine = [e for e in spans if name(e).startswith("engine.")]
+    assert len(engine) == 3 + 2 * (1 + len(GROUP_PHASES))  # call, text, assemble, groups
+
+
+@pytest.mark.parametrize("row_frames", [0, 2 * 64], ids=["whole", "chunked"])
+def test_engine_stats_count_frames_and_spans_cost_nothing_unprofiled(
+        pair, monkeypatch, row_frames):
+    """``stats`` counts the content frames returned and the frames the
+    generator was handed (chunk padding included: 3 rows of the 16-phone
+    bucket go out as 2 + 2 at two rows a chunk); with no profiler running no
+    span enters ``record_function``."""
+    _, tsynth = pair
+    monkeypatch.setattr(tsynth.cfg.inference, "vocode_row_frames", row_frames)
+    entered = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: entered.append(name) or contextlib.nullcontext())
+    handed = []
+    hook = tsynth.vocoder.register_forward_pre_hook(
+        lambda module, args: handed.append(args[0].shape[0] * args[0].shape[1]))
+    before = dict(tsynth.stats)
+    try:
+        waves = tsynth.synthesize_requests(FOUR_REQUESTS)
+    finally:
+        hook.remove()
+    grew = {k: v - before[k] for k, v in tsynth.stats.items()}
+    hop = tsynth.cfg.audio.hop_length
+    assert grew["content_frames"] * hop == sum(w.shape[0] for w in waves) > 0
+    assert grew["vocoded_frames"] == sum(handed) == (4 if row_frames else 3) * 64 + 64
+    assert grew == dict(calls=1, requests=4, sentences=4, fs2_forwards=2,
+                        content_frames=grew["content_frames"],
+                        vocoded_frames=sum(handed))
+    assert entered == []
+    with _cpu_profile():
+        with trace.span("probe"):
+            pass
+    assert entered == [trace.PREFIX + "probe"]  # the stand-in sees a span
